@@ -1,0 +1,152 @@
+"""ModelConfig dataclass and the architecture registry.
+
+Field for field the reference's ``repro.configs.base.ModelConfig``, so a
+config module registers the same published numbers in both packages;
+``dtype`` is a ``torch.dtype``.  ``reduced()`` derives the
+family-preserving small config the CPU tests use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 ⇒ d_model // n_heads
+
+    # attention
+    window: int = 0                # sliding-window size (0 = full attention)
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    use_rope: bool = True
+    pos_embedding: str = "rope"    # rope | learned | none
+    max_position: int = 32768      # learned-pos table length
+    encoder_only: bool = False
+    mrope: bool = False
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    q_block: int = 512
+    kv_block: int = 1024
+
+    # MLA (DeepSeek-V2)
+    mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    aux_loss_coef: float = 0.01
+    capacity_factor: float = 1.25
+    dispatch_shards: int = 1
+
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssd_chunk: int = 128
+    shared_attn_every: int = 0
+
+    # modality frontend
+    frontend: str = "none"         # none | vision | audio
+    frontend_dim: int = 0
+
+    # numerics / structure
+    ce_chunks: int = 8
+    param_dtype: str = "bfloat16"
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    mlp: str = "swiglu"            # swiglu | gelu
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+
+    # distribution (kept for field parity; single-device here)
+    zero3: bool = False
+    sp: bool = True
+    remat: str = "full"
+    scan_layers: bool = True
+    attn_impl: str = "flash"
+
+    # provenance
+    source: str = ""
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def has_decode(self) -> bool:
+        return not self.encoder_only
+
+    def reduced(self) -> "ModelConfig":
+        """Family-preserving tiny config for CPU smoke tests (the same
+        numbers as the reference's ``reduced()``)."""
+        return dataclasses.replace(
+            self,
+            n_layers=min(self.n_layers, 4 if self.family == "hybrid" else 2),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
+            head_dim=32,
+            d_ff=256 if not self.moe else self.d_ff,
+            dense_d_ff=256,
+            vocab_size=512,
+            max_position=512,
+            window=min(self.window, 64) if self.window else 0,
+            q_block=64,
+            kv_block=64,
+            n_experts=8 if self.moe else 0,
+            experts_per_token=min(self.experts_per_token, 2),
+            moe_d_ff=64 if self.moe else 0,
+            q_lora_rank=32 if self.mla else 0,
+            kv_lora_rank=16 if self.mla else 0,
+            qk_nope_dim=32 if self.mla else 128,
+            qk_rope_dim=16 if self.mla else 64,
+            v_head_dim=32 if self.mla else 128,
+            ssm_state=16 if self.ssm_state else 0,
+            ssm_head_dim=32,
+            ssd_chunk=32,
+            shared_attn_every=2 if self.shared_attn_every else 0,
+            frontend_dim=64 if self.frontend != "none" else 0,
+            zero3=False,
+            remat="none",
+        )
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    name = name.replace("-", "_")
+    if name not in _REGISTRY:
+        importlib.import_module(f"repro_torch.configs.{name}")
+    return _REGISTRY[name]

@@ -1,0 +1,27 @@
+"""Host codec (bit layouts, canonical Huffman, chunked planes, ZNN1
+container) and the device decode path (K1 Huffman decode, K2 plane
+consumer) on PyTorch tensors."""
+
+from . import (
+    bitlayout,
+    codec,
+    container,
+    device_entropy,
+    device_unplane,
+    engine,
+    huffman,
+    options,
+    zipnn,
+)
+
+__all__ = [
+    "bitlayout",
+    "codec",
+    "container",
+    "device_entropy",
+    "device_unplane",
+    "engine",
+    "huffman",
+    "options",
+    "zipnn",
+]

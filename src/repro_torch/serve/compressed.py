@@ -1,0 +1,229 @@
+"""Compressed-resident serving store: weights at rest stay ZNN1 payloads.
+
+``CompressedParamStore`` splits a model's parameter tree along the
+stacked-layer leading axis into per-layer subtrees and compresses each
+one on the host into ZNN1 payloads (one :func:`~repro_torch.core.zipnn.
+compress_pytree` manifest per layer).  Non-stacked params — embed, final
+norm, lm head — are the ``static`` residue: touched every token, they
+stay uncompressed on the store's device.
+
+``decode_layer`` restores one layer on the store's device.  With
+``payload_feed=True`` every leaf's payloads are parsed, checked and
+uploaded once at build (:func:`~repro_torch.core.zipnn.build_array_feed`),
+and each decode re-runs the Huffman decode (K1) and the plane consumer
+(K2) from those resident buffers with no payload upload.  Otherwise a
+decode goes through ``decompress_pytree(device_resident=True)``.  The
+ring scheduler (:func:`repro_torch.serve.step.make_compressed_serve_step`)
+drives decode/release; the store keeps the residency accounting:
+``resident_count`` / ``peak_resident`` count decoded-layer slots claimed
+now / ever, which the "at most ``ring`` decoded layers" claim checks.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+from .. import _util
+from ..core import zipnn
+from ..core.options import CodecOptions, resolve_options
+
+__all__ = ["DEFAULT_STACK_KEYS", "CompressedParamStore"]
+
+PyTree = Any
+
+# Stacked-layer top-level keys (leading axis = layer).  The dense family's
+# one stack; the MoE family's keys join when that family is ported.
+DEFAULT_STACK_KEYS: Tuple[str, ...] = ("layers",)
+
+
+class CompressedParamStore:
+    """Per-layer ZNN1 payloads at rest + decoded-slot residency accounting."""
+
+    def __init__(
+        self,
+        config: Optional[zipnn.ZipNNConfig] = None,
+        *,
+        options: Optional[CodecOptions] = None,
+        payload_feed: bool = False,
+        device: Any = "cuda",
+    ) -> None:
+        self.device = _util.resolve_device(device)
+        self._config = zipnn.DEFAULT if config is None else config
+        self._options = resolve_options(options)
+        self.payload_feed = payload_feed
+        self.static: Dict[str, PyTree] = {}
+        self._stacks: Dict[str, List[Dict[str, Any]]] = {}
+        # payload_feed=True: per-layer, per-leaf ArrayFeeds (None where a
+        # leaf is feed-ineligible and rides the per-call decode instead).
+        self._feeds: Dict[str, List[List[Optional[zipnn.ArrayFeed]]]] = {}
+        self._lock = threading.Lock()
+        self._resident: set = set()
+        self.peak_resident = 0
+
+    # -- construction -----------------------------------------------------
+
+    @classmethod
+    def from_params(
+        cls,
+        params: Mapping[str, PyTree],
+        config: Optional[zipnn.ZipNNConfig] = None,
+        *,
+        options: Optional[CodecOptions] = None,
+        payload_feed: bool = False,
+        device: Any = "cuda",
+    ) -> "CompressedParamStore":
+        """Compress ``params``' stacked-layer subtrees into a store.
+
+        Every top-level key of ``params`` in :data:`DEFAULT_STACK_KEYS` is
+        split along its leading layer axis and compressed per layer;
+        everything else is copied to ``device`` as
+        ``store.static``.  Compression is deterministic: two stores built
+        from the same params hold byte-identical payloads for any
+        ``options.threads``.
+        """
+        if not isinstance(params, Mapping):
+            raise ValueError("from_params expects the model's top-level param dict")
+        store = cls(config, options=options, payload_feed=payload_feed, device=device)
+        for key, sub in params.items():
+            if key not in DEFAULT_STACK_KEYS:
+                store.static[key] = _util.tree_map(lambda a: a.to(store.device), sub)
+                continue
+            leaves = _util.tree_leaves(sub)
+            if not leaves:
+                continue
+            n = leaves[0].shape[0]
+            store._stacks[key] = [
+                zipnn.compress_pytree(
+                    _util.tree_map(lambda a, i=i: a[i], sub),
+                    store._config,
+                    options=store._options,
+                )
+                for i in range(n)
+            ]
+            if payload_feed:
+                store._feeds[key] = [
+                    [
+                        zipnn.build_array_feed(
+                            ct, store._config, options=store._options,
+                            device=store.device,
+                        )
+                        for ct in manifest["leaves"]
+                    ]
+                    for manifest in store._stacks[key]
+                ]
+        return store
+
+    # -- decode / residency ------------------------------------------------
+
+    def decode_layer(self, key: str, i: int) -> PyTree:
+        """Decode layer ``i`` of stack ``key`` into a ring slot on the
+        store's device (feed path where a feed covers a leaf, per-call
+        decode otherwise; bit-identical either way).  Marks the slot
+        resident — the caller owns it until :meth:`release`."""
+        manifest = self._stacks[key][i]
+        feeds = self._feeds.get(key)
+        if feeds is not None:
+            arrays = [
+                feed.decode() if feed is not None
+                else zipnn.decompress_array(
+                    ct, self._config, options=self._options,
+                    device_resident=True, device=self.device,
+                )
+                for feed, ct in zip(feeds[i], manifest["leaves"])
+            ]
+            tree = _util.tree_unflatten(manifest["treedef"], arrays)
+        else:
+            tree = zipnn.decompress_pytree(
+                manifest, self._config, options=self._options,
+                device_resident=True, device=self.device,
+            )
+        with self._lock:
+            self._resident.add((key, i))
+            self.peak_resident = max(self.peak_resident, len(self._resident))
+        return tree
+
+    def release(self, key: str, i: int) -> None:
+        """Return a decoded slot to the ring (drops the store's claim; the
+        buffers themselves are freed once the layer's compute is done)."""
+        with self._lock:
+            self._resident.discard((key, i))
+
+    @property
+    def resident_count(self) -> int:
+        with self._lock:
+            return len(self._resident)
+
+    def reset_peak(self) -> None:
+        with self._lock:
+            self._resident.clear()
+            self.peak_resident = 0
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def stack_keys(self) -> Tuple[str, ...]:
+        return tuple(self._stacks)
+
+    def n_layers(self, key: str) -> int:
+        return len(self._stacks.get(key, ()))
+
+    def feeds(self, key: str) -> List[List[Optional[zipnn.ArrayFeed]]]:
+        """Per-layer, per-leaf feeds of stack ``key`` (empty without
+        ``payload_feed``)."""
+        return self._feeds.get(key, [])
+
+    def manifest(self, key: str, i: int) -> Dict[str, Any]:
+        return self._stacks[key][i]
+
+    @property
+    def raw_bytes(self) -> int:
+        """Uncompressed size of the compressed-at-rest stacks."""
+        return sum(m["raw_bytes"] for ms in self._stacks.values() for m in ms)
+
+    @property
+    def comp_bytes(self) -> int:
+        """ZNN1 payload size actually held at rest."""
+        return sum(m["comp_bytes"] for ms in self._stacks.values() for m in ms)
+
+    @property
+    def ratio_pct(self) -> float:
+        return 100.0 * self.comp_bytes / max(1, self.raw_bytes)
+
+    @property
+    def device_payload_bytes(self) -> int:
+        """Device bytes held by the payload feeds — payload words, splice,
+        LUT rows and per-chunk index arrays (0 without ``payload_feed``:
+        payloads then live on the host at rest)."""
+        return sum(
+            feed.device_bytes
+            for layers in self._feeds.values()
+            for per_leaf in layers
+            for feed in per_leaf
+            if feed is not None
+        )
+
+    @property
+    def static_bytes(self) -> int:
+        return sum(
+            t.numel() * t.element_size()
+            for sub in self.static.values()
+            for t in _util.tree_leaves(sub)
+        )
+
+    @property
+    def max_layer_raw_bytes(self) -> int:
+        """Decoded size of the largest single layer — one ring slot."""
+        return max(
+            (m["raw_bytes"] for ms in self._stacks.values() for m in ms),
+            default=0,
+        )
+
+    def footprint_bytes(self, ring: int = 2) -> int:
+        """Serving-time weight footprint: payloads at rest + static residue
+        + ``ring`` decoded-layer slots (vs ``raw_bytes + static_bytes``
+        for the uncompressed model).  With ``payload_feed`` the payloads
+        at rest are what the feeds hold on the device
+        (:attr:`device_payload_bytes`); without it, the ZNN1 blobs."""
+        at_rest = self.device_payload_bytes if self._feeds else self.comp_bytes
+        return at_rest + self.static_bytes + ring * self.max_layer_raw_bytes
