@@ -27,13 +27,18 @@ def resolve_device(device: Any) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device must exist.
 
     Entry points default to ``"cuda"``: without a card they raise unless
-    the caller asks for ``"cpu"`` explicitly.
+    the caller asks for ``"cpu"`` explicitly.  A CUDA device without an
+    index gets the current one, so the result compares equal to the
+    ``.device`` of the tensors made on it.
     """
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the host"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the host"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

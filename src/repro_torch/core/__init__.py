@@ -1,5 +1,6 @@
 """Host codec (bit layouts, canonical Huffman, chunked planes, ZNN1
-container) and the device decode path (K1 Huffman decode, K2 plane
+container), the device encode path (K3 plane producer, K7 Huffman
+bit-pack) and the device decode path (K1 Huffman decode, K2 plane
 consumer) on PyTorch tensors."""
 
 from . import (
@@ -7,6 +8,7 @@ from . import (
     codec,
     container,
     device_entropy,
+    device_plane,
     device_unplane,
     engine,
     huffman,
@@ -19,6 +21,7 @@ __all__ = [
     "codec",
     "container",
     "device_entropy",
+    "device_plane",
     "device_unplane",
     "engine",
     "huffman",

@@ -1,6 +1,24 @@
-"""Device entropy decode: the HUFF chunks of a ZNN1 stream decode with K1.
+"""Device entropy stage: Huffman bit-packing with K7, decoding with K1.
 
-Every ``HUFF`` chunk of a parsed container decodes in one launch of
+**Encode** (:func:`encode_planes`): the probe histograms (the host's or
+the device plane producer's :class:`~.codec.ProbeStats`) feed the
+canonical table build on the host — a 256-entry package-merge, and the
+canonical-code contract that keeps blobs testable — through the shared
+:meth:`~.codec.PlaneCodec.plan`.  Every (plane, chunk) work item planned
+as ``HUFF`` then packs in one launch of
+:func:`repro_torch.kernels.bitpack_encode_chunks` (K7, per-chunk table
+selection, so all planes of a tensor ride one launch), and the packed
+words and bit counts come back in one download.  The host keeps container
+framing and the expansion guard: chunks whose packed size reaches their
+raw size are stored raw by :meth:`~.codec.PlaneCodec.finalize`, as on the
+host path.  When the planes carry their device twins
+(:class:`.device_plane.PlanedArray`), the HUFF symbols are gathered on the
+device and never uploaded.  Envelope: the canonical ``huffman`` coder
+(``hufflib``'s DEFLATE stream has no device form) and ``chunk_bytes % 4
+== 0``; everything else encodes on the host, as the reference routes it.
+
+**Decode** (:func:`decode_planes`, :class:`PayloadFeed`): every ``HUFF``
+chunk of a parsed container decodes in one launch of
 :func:`repro_torch.kernels.huffdecode_chunks` — per-chunk LUT row
 selection over stacked canonical tables, one thread per chunk, serial bit
 cursor inside a chunk.  CRC verification, the ``decode_many``-equivalent
@@ -18,8 +36,8 @@ concatenate: one copy per run of adjacent non-HUFF chunks, one launch.
 each :meth:`PayloadFeed.decode` then re-runs the copies and the launch
 from resident buffers — zero host→device payload traffic per decode,
 which :func:`transfer_stats` counts.  :func:`decode_planes` is the
-one-shot form.  On ``device="cpu"`` the same code runs the kernel's
-plain version.
+one-shot form.  On ``device="cpu"`` the same code runs the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -33,18 +51,22 @@ import numpy as np
 import torch
 
 from .. import _util
-from ..kernels import huffdecode_chunks
+from ..kernels import bitpack_encode_chunks, huffdecode_chunks
 from ..kernels.huffdecode import fuse_lut, pack_words
-from . import codec, huffman
+from . import bitlayout, codec, huffman
+from .device_plane import MAX_BATCH_BYTES
 
 __all__ = [
     "LUT_CACHE_SIZE",
     "PayloadFeed",
+    "supports",
+    "encode_planes",
     "supports_decode",
     "decode_planes",
     "transfer_stats",
     "reset_transfer_stats",
 ]
+
 
 # _stacked_luts_cached's lru_cache bound.  The cache is keyed on raw table
 # bytes, so a long-lived serving session decoding many *distinct* stores
@@ -59,18 +81,25 @@ LUT_CACHE_SIZE = 64
 # ---------------------------------------------------------------------------
 #
 # Every payload-sized host→device upload of this module is tallied here:
-# packed HUFF words and the non-HUFF splice.  The counters are the test
-# hook behind the feed's contract — zero per-token payload uploads after
-# warmup — and never touch the data path.
+# HUFF symbols (encode, when the planes have no device twin), packed HUFF
+# words and the non-HUFF splice (decode).  Symbol uploads are also counted
+# on their own.  The counters are the test hook behind two contracts —
+# zero per-token payload uploads after warmup, zero symbol uploads when the
+# device plane producer made the planes — and never touch the data path.
 
 _transfer_lock = threading.Lock()
-_transfer_stats: Dict[str, int] = {"payload_uploads": 0, "payload_bytes": 0}
+_transfer_stats: Dict[str, int] = {
+    "payload_uploads": 0, "payload_bytes": 0, "symbol_uploads": 0, "symbol_bytes": 0,
+}
 
 
-def _count_payload_upload(nbytes: int) -> None:
+def _count_payload_upload(nbytes: int, symbols: bool = False) -> None:
     with _transfer_lock:
         _transfer_stats["payload_uploads"] += 1
         _transfer_stats["payload_bytes"] += int(nbytes)
+        if symbols:
+            _transfer_stats["symbol_uploads"] += 1
+            _transfer_stats["symbol_bytes"] += int(nbytes)
 
 
 def transfer_stats() -> Dict[str, int]:
@@ -84,6 +113,186 @@ def reset_transfer_stats() -> None:
         for k in _transfer_stats:
             _transfer_stats[k] = 0
 
+
+# ---------------------------------------------------------------------------
+# encode
+# ---------------------------------------------------------------------------
+
+def supports(layout: Optional[bitlayout.BitLayout], params: codec.CodecParams) -> bool:
+    """Can K7 reproduce the host encoder's bytes?  The canonical
+    ``huffman`` coder with chunks of whole uint32 words."""
+    return params.backend == "huffman" and params.chunk_bytes % 4 == 0
+
+
+def _gather_syms_device(
+    planes: Sequence[np.ndarray],
+    jobs: Sequence[Tuple[int, int, int]],
+    chunk_bytes: int,
+    device: torch.device,
+) -> Optional[torch.Tensor]:
+    """HUFF symbols for ``jobs`` gathered from the planes' device twins.
+
+    Returns a flat ``(len(jobs) * chunk_bytes,)`` uint8 tensor on
+    ``device``, or ``None`` when a plane the jobs read has no twin there
+    (host-planed leaves, another chunk geometry) or the jobs are not
+    plane-major; the caller then builds the symbols on the host.  Only the
+    chunk indices cross host→device.
+    """
+    if not jobs or any(jobs[k][0] < jobs[k - 1][0] for k in range(1, len(jobs))):
+        return None
+    parts = []
+    i = 0
+    while i < len(jobs):
+        p = jobs[i][0]
+        j = i
+        while j < len(jobs) and jobs[j][0] == p:
+            j += 1
+        dev = getattr(planes[p], "dev_chunks", None)
+        if (
+            dev is None or dev.device != device or dev.dim() != 2
+            or dev.shape[1] != chunk_bytes
+        ):
+            return None
+        ids = [ch for (_, ch, _) in jobs[i:j]]
+        if max(ids) >= dev.shape[0]:
+            return None
+        parts.append(dev.index_select(0, torch.tensor(ids, dtype=torch.int64, device=device)))
+        i = j
+    return torch.cat(parts).reshape(-1)
+
+
+def _pack_jobs(
+    planes: Sequence[np.ndarray],
+    jobs: Sequence[Tuple[int, int, int]],
+    len_tables: np.ndarray,
+    code_tables: np.ndarray,
+    chunk_bytes: int,
+    device: torch.device,
+) -> List[bytes]:
+    """One K7 launch over ``jobs``; returns their payloads.
+
+    ``jobs`` is ``(plane_idx, chunk_idx, size)`` per HUFF chunk.  A final
+    partial chunk (``size < chunk_bytes``) is zero-padded on the symbol
+    side; its pad symbols' bits are subtracted from the count and masked
+    out of the last byte here, which gives the bytes of encoding exactly
+    ``size`` symbols.
+    """
+    c = len(jobs)
+    pids = np.asarray([p for (p, _, _) in jobs], dtype=np.int32)
+    syms = _gather_syms_device(planes, jobs, chunk_bytes, device)
+    if syms is None:
+        host = np.zeros(c * chunk_bytes, dtype=np.uint8)
+        for k, (p, ch, size) in enumerate(jobs):
+            start = ch * chunk_bytes
+            host[k * chunk_bytes : k * chunk_bytes + size] = planes[p][start : start + size]
+        _count_payload_upload(host.nbytes, symbols=True)
+        syms = torch.from_numpy(host).to(device)
+    words, nbits = bitpack_encode_chunks(
+        syms,
+        torch.from_numpy(pids).to(device),
+        torch.from_numpy(len_tables).to(device),
+        torch.from_numpy(code_tables).to(device),
+        chunk_syms=chunk_bytes,
+    )
+    # The download of the launch: words and bit counts.  .cpu() waits for
+    # the launch on the current stream.
+    words_h = words.cpu().numpy().view(np.uint32)
+    nbits_h = nbits.cpu().numpy()
+    # Bit j of a chunk is word bit 31 - (j & 31): the words' big-endian
+    # bytes are exactly the np.packbits stream the host encoder emits.
+    stream = words_h.byteswap().view(np.uint8).reshape(-1)
+
+    out: List[bytes] = []
+    for k, (p, ch, size) in enumerate(jobs):
+        pad = chunk_bytes - size
+        true_bits = int(nbits_h[k]) - pad * int(len_tables[p, 0])
+        nbytes = (true_bits + 7) >> 3
+        if nbytes > chunk_bytes:
+            # Expanded past K7's raw-size capacity: finalize() stores this
+            # chunk raw (len >= raw_len), so only the length matters.
+            out.append(bytes(nbytes))
+            continue
+        blob = bytearray(stream[k * chunk_bytes : k * chunk_bytes + nbytes])
+        slack = nbytes * 8 - true_bits
+        if slack and nbytes:
+            blob[-1] &= (0xFF << slack) & 0xFF      # zero the pad symbols' bits
+        out.append(bytes(blob))
+    return out
+
+
+def encode_planes(
+    planes: Sequence[np.ndarray],
+    probes: Sequence[Optional[codec.ProbeStats]],
+    params: codec.CodecParams,
+    pool=None,
+    device: Any = "cuda",
+) -> Tuple[List[List[codec.ChunkEntry]], List[List[bytes]], List[Optional[bytes]]]:
+    """Device form of the per-plane host compress loop.
+
+    Pass 1 (probe, probe-skip, table build) runs on the host through the
+    shared :meth:`~.codec.PlaneCodec.plan`; every planned ``HUFF`` chunk
+    of *all* planes then packs with K7 on ``device``, one launch per
+    ``MAX_BATCH_BYTES // (2 * chunk_bytes)`` chunks, while ``ZERO`` /
+    ``STORE`` / ``ZLIB`` chunks encode as host work items on ``pool``.
+    Pass 3 (expansion guard, metadata map) is the shared ``finalize``.
+
+    Returns per-plane ``(entries, payloads, table_blob)`` lists equal to
+    :func:`.codec.compress_plane`'s byte for byte.
+    """
+    dev = _util.resolve_device(device)
+    codecs = [codec.PlaneCodec(params) for _ in planes]
+    methods_all: List[List[int]] = [
+        pc.plan(plane, pool=pool, probe=probe)
+        for pc, plane, probe in zip(codecs, planes, probes)
+    ]
+
+    cb = params.chunk_bytes
+    jobs: List[Tuple[int, int, int]] = [
+        (p, ch, min(cb, plane.size - ch * cb))
+        for p, (plane, methods) in enumerate(zip(planes, methods_all))
+        for ch, m in enumerate(methods)
+        if m == codec.Method.HUFF
+    ]
+    huff_payloads: Dict[Tuple[int, int], bytes] = {}
+    if jobs:
+        len_tables = np.stack([np.asarray(pc.table, dtype=np.int32) for pc in codecs])
+        code_tables = np.stack([np.asarray(pc.codes, dtype=np.int32) for pc in codecs])
+        per_launch = max(1, MAX_BATCH_BYTES // (2 * cb))
+        for lo in range(0, len(jobs), per_launch):
+            batch = jobs[lo : lo + per_launch]
+            blobs = _pack_jobs(planes, batch, len_tables, code_tables, cb, dev)
+            for (p, ch, _), blob in zip(batch, blobs):
+                huff_payloads[(p, ch)] = blob
+
+    entries_all: List[List[codec.ChunkEntry]] = []
+    payloads_all: List[List[bytes]] = []
+    tables_all: List[Optional[bytes]] = []
+    for p, (pc, plane, methods) in enumerate(zip(codecs, planes, methods_all)):
+        other = [ch for ch in range(len(methods)) if methods[ch] != codec.Method.HUFF]
+        other_blobs = codec._fan_out(
+            pool,
+            len(other),
+            lambda ids, plane=plane, methods=methods, other=other, pc=pc: (
+                pc.encode_ids(plane, methods, [other[i] for i in ids])
+            ),
+        )
+        payloads: List[bytes] = [b""] * len(methods)
+        for ch, blob in zip(other, other_blobs):
+            payloads[ch] = blob
+        for ch, m in enumerate(methods):
+            if m == codec.Method.HUFF:
+                payloads[ch] = huff_payloads[(p, ch)]
+        entries = pc.finalize(plane, methods, payloads)
+        entries_all.append(entries)
+        payloads_all.append(payloads)
+        needs_table = any(e.method == codec.Method.HUFF for e in entries)
+        tables_all.append(pc.table_blob() if needs_table else None)
+    return entries_all, payloads_all, tables_all
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
 
 def supports_decode(chunk_bytes: int) -> bool:
     """Can the device path decode a stream with this chunk geometry?

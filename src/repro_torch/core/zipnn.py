@@ -8,22 +8,39 @@ Pipeline per tensor (paper §3):
 
 Entry points:
   * :func:`compress_bytes` / :func:`decompress_bytes` — raw little-endian
-    streams with an explicit dtype interpretation (host).
+    streams with an explicit dtype interpretation.
   * :func:`compress_array` / :func:`decompress_array` — one tensor.
     ``decompress_array(..., device_resident=True)`` decodes on ``device``
     (default ``"cuda"``): K1 decodes the Huffman chunks and K2 rebuilds the
     elements there, so only the compressed payload crosses host→device.
   * :func:`compress_pytree` / :func:`decompress_pytree` — nested dicts of
     tensors (leaves in sorted-key order); returns a manifest.
+  * :func:`delta_compress` / :func:`delta_compress_batched` /
+    :func:`delta_decompress` — §4.2 XOR deltas against a base tensor.
   * :func:`build_array_feed` → :class:`ArrayFeed` — one tensor's payloads
     resident on the device, decoded again on every call with no payload
     upload (the compressed-resident serving ring's path).
 
+Every compress entry point takes ``options.backend`` (default: the
+config's ``plane_backend``) and ``device=`` (default ``"cuda"``):
+``"host"`` runs rotate / byte-group / probe in numpy; ``"device"`` runs
+them as one launch of K3 on ``device`` (:mod:`.device_plane`), with the
+XOR of a delta fused in; ``"auto"`` picks the device for leaves already on
+a CUDA device.  ``options.entropy_backend`` (default: the config's
+``entropy_backend``, then the plane backend) does the same for the
+Huffman bit-packing of the planned ``HUFF`` chunks, with K7
+(:mod:`.device_entropy`); only the canonical ``huffman`` coder has a
+device form.  Leaves outside a stage's envelope take the host path for
+that stage, as the reference routes them; a leaf routed to the device
+with ``device="cuda"`` and no card raises.  ``delta_decompress`` decodes
+on ``device`` (K1, then K2 with the base) when ``device_resident`` or the
+backend asks for it.
+
 Blobs are byte-identical to the reference implementation's
-``repro.core.zipnn`` for the same bytes and config; ``options.threads``
-fans (plane, chunk) work items across a pool and never changes bytes.
-Encode runs on the host.  Delta streams and the file engine are not part
-of this package yet.
+``repro.core.zipnn`` for the same bytes and config, across ``backend`` ×
+``entropy_backend`` × ``threads``; ``options.threads`` fans (plane, chunk)
+work items across a pool.  The file engine is not part of this package
+yet.
 """
 
 from __future__ import annotations
@@ -35,8 +52,11 @@ import numpy as np
 import torch
 
 from .. import _util
-from . import bitlayout, codec, container, device_entropy, device_unplane, engine
-from .options import CodecOptions, resolve_options
+from ..kernels.fused_unplane import ELEM_DTYPES
+from . import (
+    bitlayout, codec, container, device_entropy, device_plane, device_unplane, engine,
+)
+from .options import CodecOptions, resolve_backend, resolve_options
 
 __all__ = [
     "ZipNNConfig",
@@ -50,6 +70,9 @@ __all__ = [
     "decompress_bytes",
     "compress_pytree",
     "decompress_pytree",
+    "delta_compress",
+    "delta_compress_batched",
+    "delta_decompress",
 ]
 
 
@@ -69,12 +92,19 @@ class ZipNNConfig:
     # Parallelism: 0/1 = serial, N > 1 = N pool workers, -1 = all cores.
     # Blob bytes are identical for every setting.
     threads: int = 0
+    # Plane stage: 'host' (numpy), 'device' (K3 where the layout and chunk
+    # size allow it) or 'auto' (device only for leaves on a CUDA device).
+    plane_backend: str = "host"
+    # Bit-pack stage: None follows plane_backend; otherwise as above, with
+    # K7 for the canonical 'huffman' coder only.
+    entropy_backend: Optional[str] = None
 
-    def plane_params(self, itemsize: int) -> codec.CodecParams:
+    def plane_params(self, itemsize: int, delta: bool = False) -> codec.CodecParams:
         return codec.CodecParams(
             chunk_bytes=max(1, self.chunk_param_bytes // max(itemsize, 1)),
             incompressible=self.incompressible,
             skip_chunks=self.skip_chunks,
+            delta_mode=delta,
             backend=self.backend,
             zlib_level=self.zlib_level,
         )
@@ -101,17 +131,94 @@ def _pool(config: ZipNNConfig, opts: CodecOptions):
 
 
 # ---------------------------------------------------------------------------
-# byte streams (host)
+# backend resolution
 # ---------------------------------------------------------------------------
+
+def _plane_request(config: ZipNNConfig, opts: CodecOptions) -> str:
+    return config.plane_backend if opts.backend is None else opts.backend
+
+
+def _entropy_request(config: ZipNNConfig, opts: CodecOptions) -> str:
+    """``options.entropy_backend``, then the config's, then the plane
+    request: ``backend="device"`` means both stages on the device unless
+    the entropy knob says otherwise (mixed mode)."""
+    for requested in (opts.entropy_backend, config.entropy_backend):
+        if requested is not None:
+            return requested
+    return _plane_request(config, opts)
+
+
+def _plane_backend(config, opts, layout, params, leaf=None) -> str:
+    return resolve_backend(
+        _plane_request(config, opts), device_plane.supports(layout, params), leaf, "plane"
+    )
+
+
+def _entropy_backend(config, opts, layout, params, leaf=None) -> str:
+    return resolve_backend(
+        _entropy_request(config, opts), device_entropy.supports(layout, params), leaf, "entropy"
+    )
+
+
+def _host_planes(opts: CodecOptions, entropy: str) -> CodecOptions:
+    """``opts`` for a leaf whose plane stage was resolved to the host and
+    whose entropy stage was resolved to ``entropy``."""
+    return opts.replace(backend="host", entropy_backend=entropy)
+
+
+# ---------------------------------------------------------------------------
+# byte streams
+# ---------------------------------------------------------------------------
+
+def _entropy_stage(
+    planes: List[np.ndarray],
+    probes: List[Optional[codec.ProbeStats]],
+    layout: bitlayout.BitLayout,
+    body_bytes: int,
+    rem: Optional[np.ndarray],
+    params: codec.CodecParams,
+    pool,
+    delta: bool,
+    entropy: str,
+    device: Any,
+) -> bytes:
+    """Shared back half of every compression path: (plane, chunk) entropy
+    work items + container packing.  ``planes`` come from the host split
+    or K3; ``probes`` carry K3's histograms (None: the host probes).
+    ``entropy="device"`` packs the planned HUFF chunks of all planes with
+    K7 on ``device``; blobs are byte-identical either way."""
+    if entropy == "device" and planes:
+        entries, payloads, tables = device_entropy.encode_planes(
+            planes, probes, params, pool=pool, device=device
+        )
+    else:
+        entries, payloads, tables = [], [], []
+        for plane, probe in zip(planes, probes):
+            e, p, t = codec.compress_plane(plane, params, pool=pool, probe=probe)
+            entries.append(e)
+            payloads.append(p)
+            tables.append(t)
+    blob = container.pack_stream(
+        layout.name, body_bytes, params.chunk_bytes, tables, entries, payloads,
+        delta=delta,
+    )
+    if rem is not None and rem.size:
+        blob += b"TAIL" + bytes(rem)
+    return blob
+
 
 def compress_bytes(
     raw: Union[bytes, bytearray, memoryview, np.ndarray],
     dtype_name: str,
     config: ZipNNConfig = DEFAULT,
     *,
+    delta: bool = False,
     options: Optional[CodecOptions] = None,
+    device: Any = "cuda",
 ) -> bytes:
-    """Compress a raw little-endian byte stream interpreted as ``dtype_name``."""
+    """Compress a raw little-endian byte stream interpreted as ``dtype_name``
+    (``delta=True``: the stream is an XOR delta, coded with the §4.2
+    method choice)."""
     opts = resolve_options(options)
     if isinstance(raw, (bytes, memoryview, bytearray)):
         buf = np.frombuffer(raw, dtype=np.uint8)
@@ -121,22 +228,16 @@ def compress_bytes(
     tail = buf.size % layout.align
     body, rem = (buf[: buf.size - tail], buf[buf.size - tail :]) if tail else (buf, None)
     pool = _pool(config, opts)
-    params = config.plane_params(layout.itemsize)
-    planes = bitlayout.to_planes(body, layout, pool=pool)
-    tables: List[Optional[bytes]] = []
-    entries: List[List[codec.ChunkEntry]] = []
-    payloads: List[List[bytes]] = []
-    for plane in planes:
-        e, p, t = codec.compress_plane(plane, params, pool=pool)
-        entries.append(e)
-        payloads.append(p)
-        tables.append(t)
-    blob = container.pack_stream(
-        layout.name, body.size, params.chunk_bytes, tables, entries, payloads
+    params = config.plane_params(layout.itemsize, delta)
+    if body.size and _plane_backend(config, opts, layout, params) == "device":
+        planes, probes = device_plane.produce_planes(body, layout, params, device=device)
+    else:
+        planes = list(bitlayout.to_planes(body, layout, pool=pool))
+        probes = [None] * len(planes)
+    entropy = _entropy_backend(config, opts, layout, params) if body.size else "host"
+    return _entropy_stage(
+        planes, probes, layout, body.size, rem, params, pool, delta, entropy, device
     )
-    if rem is not None and rem.size:
-        blob += b"TAIL" + bytes(rem)
-    return blob
 
 
 def _parse(blob: bytes):
@@ -179,6 +280,8 @@ def decompress_bytes(
 
 def _raw_view(t: torch.Tensor) -> np.ndarray:
     """A tensor's little-endian bytes as a host uint8 array."""
+    if not t.numel():              # an empty view may have stride 0: no byte view
+        return np.zeros(0, dtype=np.uint8)
     t = t.detach().to("cpu").contiguous().reshape(-1)
     return t.view(torch.uint8).numpy()
 
@@ -190,15 +293,60 @@ def _from_raw(raw: bytes, dtype: str, shape: Tuple[int, ...]) -> torch.Tensor:
     return u8.view(_util.torch_dtype(dtype)).reshape(shape)
 
 
+def _leaf_layout(arr: torch.Tensor) -> Optional[bitlayout.BitLayout]:
+    return bitlayout.LAYOUTS.get(_util.dtype_name(arr.dtype))
+
+
+def _device_encode(
+    leaves: List[torch.Tensor],
+    bases: Optional[List[torch.Tensor]],
+    layout: bitlayout.BitLayout,
+    params: codec.CodecParams,
+    config: ZipNNConfig,
+    opts: CodecOptions,
+    device: Any,
+) -> List[bytes]:
+    """Blobs of same-layout leaves (XORed with ``bases`` for a delta) whose
+    plane stage is the device's: one K3 batch, then each leaf's entropy
+    stage on its resolved backend."""
+    produced = device_plane.produce_planes_batched(
+        leaves, layout, params, bases=bases, device=device
+    )
+    pool = _pool(config, opts)
+    return [
+        _entropy_stage(
+            planes, probes, layout, leaf.numel() * layout.itemsize, None, params,
+            pool, params.delta_mode,
+            _entropy_backend(config, opts, layout, params, leaf=leaf), device,
+        )
+        for leaf, (planes, probes) in zip(leaves, produced)
+    ]
+
+
 def compress_array(
     arr: torch.Tensor,
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    device: Any = "cuda",
 ) -> CompressedTensor:
-    """Compress one tensor (on any device; its bytes are read on the host)."""
+    """Compress one tensor.
+
+    On the host plane path its bytes are read on the host; on the device
+    path (``options.backend``) K3 planes it on ``device`` — a tensor
+    already there is read in place, and only its planes come back.
+    """
+    opts = resolve_options(options)
     name = _util.dtype_name(arr.dtype)
-    blob = compress_bytes(_raw_view(arr), name, config, options=options)
+    layout = _leaf_layout(arr)
+    if layout is not None and arr.numel():
+        params = config.plane_params(layout.itemsize)
+        if _plane_backend(config, opts, layout, params, leaf=arr) == "device":
+            blob = _device_encode([arr], None, layout, params, config, opts, device)[0]
+            return CompressedTensor(blob, name, tuple(arr.shape))
+        # resolved once against the leaf, before its bytes go to the host
+        opts = _host_planes(opts, _entropy_backend(config, opts, layout, params, leaf=arr))
+    blob = compress_bytes(_raw_view(arr), name, config, options=opts, device=device)
     return CompressedTensor(blob, name, tuple(arr.shape))
 
 
@@ -335,19 +483,59 @@ def build_array_feed(
 # pytrees
 # ---------------------------------------------------------------------------
 
+def _device_groups(leaves, config, opts, delta=False) -> Dict[str, List[int]]:
+    """Indices of the leaves whose plane stage resolves to the device,
+    grouped by dtype (one K3 batch per group)."""
+    groups: Dict[str, List[int]] = {}
+    if _plane_request(config, opts) == "host":
+        return groups
+    for i, leaf in enumerate(leaves):
+        layout = _leaf_layout(leaf)
+        if layout is None or not leaf.numel():
+            continue
+        params = config.plane_params(layout.itemsize, delta)
+        if _plane_backend(config, opts, layout, params, leaf=leaf) == "device":
+            groups.setdefault(_util.dtype_name(leaf.dtype), []).append(i)
+    return groups
+
+
+def _rest_on_host(opts: CodecOptions) -> CodecOptions:
+    """``opts`` for the leaves a batched call left to the host plane path;
+    their entropy stage still follows the request (mixed mode)."""
+    entropy = opts.entropy_backend if opts.entropy_backend is not None else opts.backend
+    return _host_planes(opts, entropy)
+
+
 def compress_pytree(
     tree: Any,
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    device: Any = "cuda",
 ) -> Dict[str, Any]:
     """Compress every leaf of a nested dict of tensors; returns a manifest.
 
     Leaves are walked in sorted-key order, so the manifest layout is
-    deterministic and matches the reference's leaf order.
+    deterministic and matches the reference's leaf order.  With the device
+    plane backend, same-dtype leaves share one K3 launch
+    (:func:`.device_plane.produce_planes_batched`); each leaf's blob is the
+    one it would get alone, on either backend.
     """
+    opts = resolve_options(options)
     leaves, treedef = _util.tree_flatten(tree)
-    comp = [compress_array(leaf, config, options=options) for leaf in leaves]
+    comp: List[Optional[CompressedTensor]] = [None] * len(leaves)
+    for name, idxs in _device_groups(leaves, config, opts).items():
+        layout = bitlayout.LAYOUTS[name]
+        group = [leaves[i] for i in idxs]
+        blobs = _device_encode(
+            group, None, layout, config.plane_params(layout.itemsize), config, opts, device
+        )
+        for i, leaf, blob in zip(idxs, group, blobs):
+            comp[i] = CompressedTensor(blob, name, tuple(leaf.shape))
+    rest = _rest_on_host(opts)
+    for i, leaf in enumerate(leaves):
+        if comp[i] is None:
+            comp[i] = compress_array(leaf, config, options=rest, device=device)
     return {
         "treedef": treedef,
         "leaves": comp,
@@ -373,3 +561,123 @@ def decompress_pytree(
     ]
     return _util.tree_unflatten(manifest["treedef"], arrays)
 
+
+# ---------------------------------------------------------------------------
+# deltas (§4.2)
+# ---------------------------------------------------------------------------
+
+def _same_kind(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype
+
+
+def delta_compress(
+    new: torch.Tensor,
+    base: torch.Tensor,
+    config: ZipNNConfig = DEFAULT,
+    *,
+    options: Optional[CodecOptions] = None,
+    device: Any = "cuda",
+) -> CompressedTensor:
+    """XOR-delta two same-shape tensors and compress the delta stream.
+
+    XOR, not subtraction: it is exactly reversible with no extra bits
+    (paper §4.2).  The delta is byte-grouped like a tensor and each chunk
+    picks Huffman or LZ by the §4.2 criteria.  On the device plane path
+    the XOR is fused into K3 (the rotation is a bit permutation, so it
+    commutes with XOR): the delta itself never exists, only its planes.
+    """
+    opts = resolve_options(options)
+    if not _same_kind(new, base):
+        raise ValueError("delta requires matching shape/dtype")
+    name = _util.dtype_name(new.dtype)
+    layout = _leaf_layout(new)
+    if layout is not None and new.numel():
+        params = config.plane_params(layout.itemsize, delta=True)
+        if _plane_backend(config, opts, layout, params, leaf=new) == "device":
+            blob = _device_encode([new], [base], layout, params, config, opts, device)[0]
+            return CompressedTensor(blob, name, tuple(new.shape))
+        opts = _host_planes(opts, _entropy_backend(config, opts, layout, params, leaf=new))
+    x = np.bitwise_xor(_raw_view(new), _raw_view(base))
+    blob = compress_bytes(x, name, config, delta=True, options=opts, device=device)
+    return CompressedTensor(blob, name, tuple(new.shape))
+
+
+def delta_compress_batched(
+    news: List[torch.Tensor],
+    bases: List[torch.Tensor],
+    config: ZipNNConfig = DEFAULT,
+    *,
+    options: Optional[CodecOptions] = None,
+    device: Any = "cuda",
+) -> List[CompressedTensor]:
+    """Delta-compress many ``(new, base)`` pairs; returns blobs in order.
+
+    With the device plane backend, same-dtype pairs share one K3 launch
+    with their bases; each blob equals :func:`delta_compress` of its pair
+    alone, on either backend.
+    """
+    opts = resolve_options(options)
+    if len(news) != len(bases):
+        raise ValueError("news and bases must pair 1:1")
+    out: List[Optional[CompressedTensor]] = [None] * len(news)
+    pairs = [i for i, (a, b) in enumerate(zip(news, bases)) if _same_kind(a, b)]
+    groups = _device_groups([news[i] for i in pairs], config, opts, delta=True)
+    for name, idxs in groups.items():
+        idxs = [pairs[i] for i in idxs]
+        layout = bitlayout.LAYOUTS[name]
+        blobs = _device_encode(
+            [news[i] for i in idxs], [bases[i] for i in idxs], layout,
+            config.plane_params(layout.itemsize, delta=True), config, opts, device,
+        )
+        for i, blob in zip(idxs, blobs):
+            out[i] = CompressedTensor(blob, name, tuple(news[i].shape))
+    rest = _rest_on_host(opts)
+    for i, (a, b) in enumerate(zip(news, bases)):
+        if out[i] is None:                    # the host path raises on a mismatch
+            out[i] = delta_compress(a, b, config, options=rest, device=device)
+    return out
+
+
+def delta_decompress(
+    ct: CompressedTensor,
+    base: torch.Tensor,
+    config: ZipNNConfig = DEFAULT,
+    *,
+    options: Optional[CodecOptions] = None,
+    device_resident: Optional[bool] = None,
+    device: Any = "cuda",
+) -> torch.Tensor:
+    """Invert :func:`delta_compress`: decode the delta stream and XOR it
+    with ``base``.
+
+    With ``device_resident`` or a backend that asks for the device
+    (``"device"``, or ``"auto"`` with a card present), K1 decodes the
+    HUFF chunks and K2 un-groups, un-rotates and XORs the base on
+    ``device``: only compressed bytes (and the base, when it lies
+    elsewhere) go there.  The result stays on ``device`` with
+    ``device_resident``, and comes back as a CPU tensor otherwise.  Leaves
+    the device path cannot take decode on the host.  Bits are identical
+    either way.
+    """
+    opts = resolve_options(options, device_resident=device_resident)
+    if tuple(ct.shape) != tuple(base.shape) or ct.dtype != _util.dtype_name(base.dtype):
+        raise ValueError("delta requires matching shape/dtype")
+    requested = _plane_request(config, opts)
+    on_device = opts.device_resident or requested == "device" or (
+        requested == "auto" and (base.is_cuda or torch.cuda.is_available())
+    )
+    if on_device:
+        dev = _util.resolve_device(device)
+        stream = _device_stream(ct, config)
+        if stream is not None:
+            meta, layout, payload_lists, params = stream
+            b = base.detach().reshape(-1).view(ELEM_DTYPES[layout.itemsize])
+            elems = device_unplane.consume_payloads(
+                meta.entries, payload_lists, meta.tables, params, layout,
+                base=b.to(dev), pool=_pool(config, opts), device=dev,
+            )
+            out = elems.view(_util.torch_dtype(ct.dtype)).reshape(ct.shape)
+            return out if opts.device_resident else out.cpu()
+    x = np.frombuffer(decompress_bytes(ct.blob, config, options=opts), dtype=np.uint8)
+    out = _from_raw(np.bitwise_xor(x, _raw_view(base)).tobytes(), ct.dtype, tuple(ct.shape))
+    return out.to(_util.resolve_device(device)) if opts.device_resident else out

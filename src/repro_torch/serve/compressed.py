@@ -2,8 +2,12 @@
 
 ``CompressedParamStore`` splits a model's parameter tree along the
 stacked-layer leading axis into per-layer subtrees and compresses each
-one on the host into ZNN1 payloads (one :func:`~repro_torch.core.zipnn.
-compress_pytree` manifest per layer).  Non-stacked params — embed, final
+one into ZNN1 payloads (one :func:`~repro_torch.core.zipnn.
+compress_pytree` manifest per layer).  With ``options.backend="device"``
+the build encodes on the store's device: K3 planes each layer's
+card-resident leaves in place (one launch per layer and dtype) and K7
+packs their Huffman chunks, so no leaf goes to the host as raw values;
+the payloads are byte-identical to a host build.  Non-stacked params — embed, final
 norm, lm head — are the ``static`` residue: touched every token, they
 stay uncompressed on the store's device.
 
@@ -78,9 +82,11 @@ class CompressedParamStore:
         Every top-level key of ``params`` in :data:`DEFAULT_STACK_KEYS` is
         split along its leading layer axis and compressed per layer;
         everything else is copied to ``device`` as
-        ``store.static``.  Compression is deterministic: two stores built
-        from the same params hold byte-identical payloads for any
-        ``options.threads``.
+        ``store.static``.  ``options.backend`` / ``entropy_backend`` choose
+        where the encode runs (the device ones on ``device``).
+        Compression is deterministic: two stores built from the same params
+        hold byte-identical payloads for any ``threads`` × ``backend`` ×
+        ``entropy_backend``.
         """
         if not isinstance(params, Mapping):
             raise ValueError("from_params expects the model's top-level param dict")
@@ -98,6 +104,7 @@ class CompressedParamStore:
                     _util.tree_map(lambda a, i=i: a[i], sub),
                     store._config,
                     options=store._options,
+                    device=store.device,
                 )
                 for i in range(n)
             ]

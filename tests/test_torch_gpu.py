@@ -8,8 +8,9 @@ them on the card with
 
 Contract: each kernel equals its plain PyTorch version on the same card
 tensors bit for bit (integer bit work: no tolerance), each wrapper counts
-its launches, and the compressed ring's logits equal the plain step's
-bit for bit on the card.
+its launches, blobs encoded on the card equal the host's byte for byte
+(tensors and delta streams, which also round-trip), and the compressed
+ring's logits equal the plain step's bit for bit on the card.
 """
 
 import zlib
@@ -19,13 +20,18 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import codec, container, device_entropy, zipnn
+from repro_torch.core import codec, container, device_entropy, huffman, zipnn
+from repro_torch.core.options import CodecOptions
 from repro_torch.kernels import (
+    bitpack_encode_chunks,
+    bitpack_encode_chunks_plain,
     huffdecode_chunks,
     huffdecode_chunks_plain,
     launch_counts,
     plane_consumer,
     plane_consumer_plain,
+    plane_producer,
+    plane_producer_plain,
     reset_launch_counts,
 )
 from repro_torch.models import decode_step, init_decode_state
@@ -126,3 +132,95 @@ def test_ring_bit_identical_on_card(cuda):
     assert launch_counts()["plane_consumer"] == 4 * sum(len(l) for l in store.feeds("layers"))
     assert device_entropy.transfer_stats()["payload_uploads"] == 0
     assert store.peak_resident <= 2
+
+
+@pytest.mark.parametrize("chunk", [16384, 3000])     # 3000: blocks of gcd(3000, 4096) = 8
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_k3_kernel_matches_plain(cuda, itemsize, with_base, chunk):
+    n = 5 * chunk
+    dt = torch.int16 if itemsize == 2 else torch.int32
+    g = torch.Generator().manual_seed(itemsize + 10 * with_base)
+    w = torch.randn(n, generator=g) * 0.02
+    x = (w.to(torch.bfloat16) if itemsize == 2 else w).view(dt).to(cuda)
+    base = torch.randint(torch.iinfo(dt).min, torch.iinfo(dt).max, (n,), dtype=dt,
+                         generator=g).to(cuda) if with_base else None
+    reset_launch_counts()
+    pk, hk = plane_producer(x, base, itemsize=itemsize, chunk_elems=chunk)
+    pp, hp = plane_producer_plain(x, base, itemsize=itemsize, chunk_elems=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["plane_producer"] == 1
+    assert torch.equal(pk, pp) and torch.equal(hk, hp)
+    assert int(hk.sum()) == n * itemsize
+
+
+@pytest.mark.parametrize("chunk", [8192, 6004])      # 6004: a partial last tile of 4096
+def test_k7_kernel_matches_plain(cuda, chunk):
+    rng = np.random.default_rng(3)
+    skewed = np.clip(rng.normal(120, 3, 3 * chunk), 0, 255).astype(np.uint8)
+    tables = []
+    for sample in (skewed, (np.arange(5000) % 7).astype(np.uint8)):
+        lens = huffman.code_lengths(np.bincount(sample, minlength=256) + 1)
+        tables.append((lens, huffman.canonical_codes(lens)))
+    skewed[-1000:] = 0                                  # zero-padded final chunk
+    syms = np.concatenate([skewed[: 2 * chunk], rng.integers(0, 256, chunk).astype(np.uint8),
+                           skewed[2 * chunk :]])
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        syms, np.asarray([0, 0, 1, 0], np.int32),
+        np.stack([t[0] for t in tables]).astype(np.int32),
+        np.stack([t[1] for t in tables]).astype(np.int32),
+    )]
+    reset_launch_counts()
+    wk, nk = bitpack_encode_chunks(*args, chunk_syms=chunk)
+    wp, np_ = bitpack_encode_chunks_plain(*args, chunk_syms=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["bitpack_encode_chunks"] == 1
+    assert int(nk[2]) > 8 * chunk                        # expanded past capacity
+    assert torch.equal(nk, np_) and torch.equal(wk, wp)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_device_blobs_equal_host_blobs_on_card(cuda, dtype):
+    cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 18, backend="huffman")
+    leaf = (torch.randn((700, 300), generator=torch.Generator().manual_seed(5)) * 0.02).to(dtype)
+    host = zipnn.compress_array(leaf, cfg)
+    reset_launch_counts()
+    device_entropy.reset_transfer_stats()
+    dev = zipnn.compress_array(leaf.to(cuda), cfg, options=CodecOptions(backend="device"),
+                               device=cuda)
+    assert dev.blob == host.blob
+    assert launch_counts()["plane_producer"] == 1
+    assert launch_counts()["bitpack_encode_chunks"] == 1
+    assert device_entropy.transfer_stats()["symbol_uploads"] == 0
+
+
+def test_default_device_gathers_symbols_on_card(cuda):
+    """With ``device`` left at its default ``"cuda"`` the HUFF symbols are
+    gathered from K3's twins on the card, as with an explicit index."""
+    cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 18, backend="huffman")
+    leaf = (torch.randn((700, 300), generator=torch.Generator().manual_seed(7)) * 0.02).to(
+        torch.bfloat16
+    )
+    host = zipnn.compress_array(leaf, cfg)
+    opts = CodecOptions(backend="device")
+    device_entropy.reset_transfer_stats()
+    dev = zipnn.compress_array(leaf.to(cuda), cfg, options=opts)
+    store = CompressedParamStore.from_params({"layers": {"w": leaf[None].to(cuda)}}, cfg,
+                                             options=opts)
+    assert dev.blob == host.blob
+    assert store.manifest("layers", 0)["leaves"][0].blob == host.blob
+    assert store.device == cuda
+    assert device_entropy.transfer_stats()["symbol_uploads"] == 0
+
+
+def test_delta_round_trip_on_card(cuda):
+    cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 18, backend="huffman")
+    g = torch.Generator().manual_seed(6)
+    base = (torch.randn((600, 512), generator=g) * 0.02).to(torch.bfloat16)
+    new = (base.float() + 1e-4 * torch.randn((600, 512), generator=g)).to(torch.bfloat16)
+    host = zipnn.delta_compress(new, base, cfg)
+    dev = zipnn.delta_compress_batched([new.to(cuda)], [base.to(cuda)], cfg,
+                                       options=CodecOptions(backend="device"), device=cuda)[0]
+    assert dev.blob == host.blob
+    out = zipnn.delta_decompress(dev, base.to(cuda), cfg, device_resident=True, device=cuda)
+    assert out.is_cuda and torch.equal(out.cpu().view(torch.int16), new.view(torch.int16))
