@@ -35,11 +35,32 @@ without printing the final line:
    fine-tuning step (``new = bf16(base + 1e-4 * N(0, 1))``) delta-coded on
    the card must equal the host's blobs and decode back to ``new`` bit
    for bit on the card;
-7. fp32: the f32 copy of layers 0-1 of the stacks (cut to two layers only
+7. the ops kernels against their plain versions on the card, bit-exact,
+   at a 3072x768 leaf (2,359,296 elements) in bf16 and its fp32 copy: K4
+   and K11 (byte-group and its inverse, both widths, a round trip), K5
+   (XOR, u16 and u32) and K10 (XOR delta with its changed-byte count) on
+   a fine-tuned copy, K6 (chunk histograms at 131,072 bytes) and K9 (byte
+   histogram) on the exponent plane, K8 (single-table bit-pack) on that
+   plane at 8,192-symbol chunks under the host codec's table;
+8. the ops path: ``repro_torch.kernels.ops`` over all 108 stacked leaves
+   of the main path's params and the delta phase's fine-tuned copy —
+   exponent histograms (paper Fig. 2) equal to numpy's of the host planes,
+   bit-exact ungroup round trips (bf16 and fp32), chunk histograms, the
+   XOR delta's changed bytes (Fig. 8a) equal to numpy's count, and for
+   layer 0's 9 leaves ``ops.huffman_encode_chunks`` of the exponent plane
+   equal to the host encoder's bytes; one ``torch.profiler`` session over
+   the pass sums its kernels' device time;
+9. fp32: the f32 copy of layers 0-1 of the stacks (cut to two layers only
    to bound the host side's time) encoded on the card must equal the
    host's blobs and round-trip bit-exactly;
-8. report: store sizes, build times, tokens/s, the ``kernels`` JSON line,
-   and last ``{"ok": true, "device": {...}}``.
+10. measurements, every kernel timed one way: CUDA events around each
+    launch with L2 evicted before it (``device_ms``) and the device time
+    alone from ``torch.profiler`` (``profiled_ms``), for K1, K2, K3 and K7
+    at the main path's shapes and the ops kernels at the 3072x768 leaf,
+    beside their plain versions and ``torch.bitwise_xor`` (K5) and
+    ``torch.bincount`` (K9);
+11. report: store sizes, build times, tokens/s, the ``kernels`` JSON line,
+    and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -70,6 +91,16 @@ K3_OPS_PER_ELEMENT = {2: 4 + 3 * 2, 4: 4 + 3 * 4}
 # K7 per symbol: two table lookups, its share of the block scan, position
 # add, field shift and OR (one or two shared atomics), the word store
 K7_OPS_PER_SYMBOL = 12
+# The ops kernels, per byte moved: K4/K11 rotate and permute (about 2);
+# K5/K10 XOR, and for K10 a byte compare, a population count and an add
+# per word (at most 1); K6/K9 byte extract, address, shared atomic, loop (4)
+BYTEGROUP_OPS_PER_BYTE = 2
+XOR_OPS_PER_BYTE = 1
+HIST_OPS_PER_BYTE = 4
+# The ops kernels' demangled names (K11 is K2's unplane_kernel)
+OPS_KERNELS = r"::group_(bf16|fp32)\(|unplane_kernel|xor_kernel|hist_kernel|bitpack_kernel"
+K8_CHUNK = 1 << 13               # the reference's ops.huffman_encode_chunks default
+L2_SCRUB_BYTES = 128 << 20       # read between timed launches: over twice the 50 MB L2
 BF16_CHUNK = 1 << 17             # plane chunk of the default 256 KiB parameter chunks
 LEAF = (3072, 768)               # the largest weight of a repro_gpt_100m layer
 # CUDA vs CPU decode_step, largest logit gap over the largest logit.  Set
@@ -84,20 +115,64 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream."""
+def device_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds per call of ``fn`` on the card, CUDA events around
+    each call.  Before each call a read of ``L2_SCRUB_BYTES`` evicts the
+    50 MB L2 cache, so its inputs come from device memory, as the bytes
+    bound assumes; the calls are queued behind a ~10 ms sleep kernel so
+    that the host's time to enqueue them (Python, ctypes) does not show.
+    A ``fn`` that synchronises inside still waits, and its gaps are timed.
+    ``warm``: one untimed call first."""
     import torch
 
-    fn()                                        # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    if warm:
         fn()
-    stop.record()
+    scrub = torch.ones(L2_SCRUB_BYTES, dtype=torch.uint8, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    torch.cuda._sleep(20_000_000)               # cycles: ~10 ms at 1.98 GHz
+    for start, stop in events:
+        scrub.max()
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def kernel_device_ms(prof, kernel: str):
+    """(summed device ms, launches) of the kernels whose demangled name
+    matches the regex ``kernel`` in a finished ``torch.profiler`` session."""
+    import re
+
+    hits = [(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0), e.count)
+            for e in prof.key_averages() if re.search(kernel, e.key)]
+    return sum(us for us, _ in hits) / 1e3, sum(c for us, c in hits if us)
+
+
+def profiled_ms(fn, kernel: str, reps: int):
+    """Mean device time in ms per call of the kernels whose demangled name
+    matches the regex ``kernel``, as ``torch.profiler`` (CUPTI) reports
+    them, with L2 evicted before each call; None when three profiling
+    sessions in a row report no matching device time (a session now and
+    then records none).  Launch latency and host gaps are not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    scrub = torch.ones(L2_SCRUB_BYTES, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scrub.max()
+                fn()
+            torch.cuda.synchronize()
+        ms, _ = kernel_device_ms(prof, kernel)
+        if ms:
+            return ms / reps
+    return None
 
 
 def bound_ms(nbytes: int, ops: int):
@@ -599,6 +674,7 @@ def phase_delta(dev, zcfg, params):
         f"coded on the card equal the host's and decode to new bit for bit on the card; "
         f"encode host {t_host:.3f} s ({raw / 1e6 / t_host:.1f} MB/s), card {t_dev:.3f} s "
         f"({raw / 1e6 / t_dev:.1f} MB/s); launches {launches}")
+    return news
 
 
 def phase_fp32(dev, zcfg, params):
@@ -646,6 +722,187 @@ def phase_fp32(dev, zcfg, params):
         f"launches {launches}")
 
 
+def ops_inputs(dev):
+    """The ops kernels' inputs at a 3072x768 leaf (2,359,296 elements): its
+    bf16 bits, the same weights after one fine-tuning step at lr 1e-4 (some
+    bytes change, most exponent bytes do not), the fp32 copies of both, and
+    the leaf's exponent plane with the table the host codec builds for it."""
+    import torch
+
+    from repro_torch.core import bitlayout, codec
+
+    x = _weights(LEAF, SEED + 12, torch.bfloat16)
+    g = torch.Generator().manual_seed(SEED + 13)
+    new = (x.float() + 1e-4 * torch.randn(LEAF, generator=g)).to(torch.bfloat16)
+    exp, _ = bitlayout.to_planes(
+        x.view(torch.uint8).numpy().reshape(-1), bitlayout.layout_for("bfloat16")
+    )
+    pc = codec.PlaneCodec(codec.CodecParams(chunk_bytes=K8_CHUNK, backend="huffman"))
+    pc.build_table(exp)
+
+    def card(t, dt):
+        return t.reshape(-1).view(dt).to(dev)
+
+    return {
+        "x16": card(x, torch.int16), "new16": card(new, torch.int16),
+        "x32": card(x.float(), torch.int32), "new32": card(new.float(), torch.int32),
+        "exp": torch.from_numpy(exp).to(dev),
+        "lens": torch.from_numpy(pc.table.astype(np.int32)).to(dev),
+        "codes": torch.from_numpy(pc.codes.astype(np.int32)).to(dev),
+    }
+
+
+def phase_ops(dev):
+    """K4-K6 and K8-K11 against their plain versions on the card, bit for
+    bit; returns each kernel's measured max |kernel - plain|."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    t = ops_inputs(dev)
+    errs: dict = {}
+
+    def same(name, got, want):
+        got = list(got) if isinstance(got, tuple) else [got]
+        want = list(want) if isinstance(want, tuple) else [want]
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: kernel and plain version disagree")
+        errs[name] = max(errs.get(name, 0), *(max_abs_diff(a, b) for a, b in zip(got, want)))
+
+    for x, grp, grp_plain, ungrp, ungrp_plain in (
+        (t["x16"], K.bytegroup_bf16, K.bytegroup_bf16_plain, K.ungroup_bf16, K.ungroup_bf16_plain),
+        (t["x32"], K.bytegroup_fp32, K.bytegroup_fp32_plain, K.ungroup_fp32, K.ungroup_fp32_plain),
+    ):
+        planes = grp(x)
+        same("bytegroup", planes, grp_plain(x))
+        back = ungrp(*planes)
+        same("ungroup", back, ungrp_plain(*planes))
+        if not torch.equal(back, x):
+            raise AssertionError(f"K4 -> K11 round trip of {x.dtype} bits is not bit-exact")
+    for a, b in ((t["new16"], t["x16"]), (t["new32"], t["x32"])):
+        same("xor_elems", K.xor_elems(a, b), K.xor_elems_plain(a, b))
+    a, b = t["new32"], t["x32"]
+    (dk, ck), (dp, cp) = K.xor_delta_u32(a, b), K.xor_delta_u32_plain(a, b)
+    same("xor_delta_u32", (dk, ck), (dp, cp))
+    changed = int(ck)
+    if not 0 < changed < 2 * a.numel():          # the fp32 copy's low two bytes are zero
+        raise AssertionError(f"K10 check: {changed} changed bytes, want some and not all")
+    exp = t["exp"]
+    same("chunk_histogram", K.chunk_histogram(exp, BF16_CHUNK),
+         K.chunk_histogram_plain(exp, BF16_CHUNK))
+    same("byte_histogram", K.byte_histogram(exp), K.byte_histogram_plain(exp))
+    args = (exp, t["lens"], t["codes"])
+    wk, nk = K.bitpack_encode_chunks_single(*args, chunk_syms=K8_CHUNK)
+    same("bitpack_encode_chunks_single", (wk, nk),
+         K.bitpack_encode_chunks_single_plain(*args, chunk_syms=K8_CHUNK))
+    log(f"ops kernels vs plain at n={exp.numel()}: K4/K11 bf16 and fp32 (round trip bit-exact), "
+        f"K5 u16 and u32, K10 ({changed} changed bytes of {4 * a.numel()}), K6 at "
+        f"{BF16_CHUNK}-byte chunks, K9, K8 ({nk.numel()} chunks of {K8_CHUNK} symbols, "
+        f"{int(nk.sum())} bits): all equal; max_abs_err {errs}")
+    return errs
+
+
+def phase_ops_path(dev, cfg, params, news):
+    """The ops path over every stacked leaf of the main path's params and the
+    delta phase's fine-tuned copy, checked against numpy on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import _util
+    from repro_torch.core import bitlayout, codec, huffman
+    from repro_torch.kernels import (
+        chunk_histogram, launch_counts, ops, reset_launch_counts, xor_elems,
+    )
+
+    layout = bitlayout.layout_for("bfloat16")
+    bases = _util.tree_leaves(params["layers"])
+    if len(bases) != len(news):
+        raise AssertionError("the fine-tuned copy has another tree than the params")
+    n_leaves = changed_bytes = changed_elems = encoded = 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(cfg.n_layers):
+            for stack, new_stack in zip(bases, news):
+                x = stack[i].reshape(-1).view(torch.int16)
+                nw = new_stack[i].reshape(-1).view(torch.int16)
+                n = x.numel()
+                exp, frac = ops.bytegroup_bf16(x)
+                hist = ops.byte_histogram(exp)
+                chunks = chunk_histogram(exp, BF16_CHUNK)
+                back = ops.ungroup_bf16(exp, frac)
+                x32 = stack[i].float().reshape(-1).view(torch.int32)
+                planes = ops.bytegroup_fp32(x32)
+                back32 = ops.ungroup_fp32(*planes)
+                d16 = xor_elems(nw, x)
+                d32 = xor_elems(new_stack[i].float().reshape(-1).view(torch.int32), x32)
+                delta, changed = ops.xor_delta_u32(nw.view(torch.int32), x.view(torch.int32))
+                halves = d32.view(torch.int16).view(-1, 2)       # fp32 bits: bf16 bits << 16
+                if not (torch.equal(back, x) and torch.equal(back32, x32)
+                        and torch.equal(planes[0], exp) and torch.equal(chunks.sum(0), hist)
+                        and torch.equal(delta.view(torch.int16), d16)
+                        and torch.equal(halves[:, 1], d16) and not halves[:, 0].any()):
+                    raise AssertionError(f"layer {i}, leaf of shape {tuple(stack.shape[1:])}: "
+                                         f"the ops disagree on the card")
+                x_host, nw_host = x.cpu().numpy(), nw.cpu().numpy()
+                exp_host, _ = bitlayout.to_planes(x_host.view(np.uint8), layout)
+                keys = (np.arange(n) // BF16_CHUNK) * 256 + exp_host
+                want_chunks = np.bincount(keys, minlength=chunks.shape[0] * 256).reshape(-1, 256)
+                want_changed = int(np.count_nonzero(
+                    nw_host.view(np.uint8) != x_host.view(np.uint8)))
+                if not (np.array_equal(exp.cpu().numpy(), exp_host)
+                        and np.array_equal(hist.cpu().numpy(),
+                                           np.bincount(exp_host, minlength=256))
+                        and np.array_equal(chunks.cpu().numpy(), want_chunks)
+                        and int(changed) == want_changed):
+                    raise AssertionError(f"layer {i}, leaf of shape {tuple(stack.shape[1:])}: "
+                                         f"the ops disagree with numpy")
+                if i == 0:
+                    pc = codec.PlaneCodec(
+                        codec.CodecParams(chunk_bytes=K8_CHUNK, backend="huffman"))
+                    pc.build_table(exp_host)
+                    got = ops.huffman_encode_chunks(exp, pc.table, pc.codes, chunk_syms=K8_CHUNK)
+                    counts = [min(K8_CHUNK, n - o) for o in range(0, n, K8_CHUNK)]
+                    want = huffman.encode_chunks(exp_host, np.asarray(counts), pc.table, pc.codes)
+                    if got != want:
+                        raise AssertionError(
+                            f"leaf of shape {tuple(stack.shape[1:])}: "
+                            f"ops.huffman_encode_chunks differs from the host encoder")
+                    if any(len(g) >= c for g, c in zip(got, counts)):
+                        raise AssertionError("a chunk of the K8 check did not shrink")
+                    encoded += len(got)
+                n_leaves += 1
+                changed_bytes += want_changed
+                changed_elems += int(np.count_nonzero(nw_host != x_host))
+        torch.cuda.synchronize()
+    t_pass = time.perf_counter() - t0
+    ops_ms, ops_n = kernel_device_ms(prof, OPS_KERNELS)
+    all_ms, all_n = kernel_device_ms(prof, ".")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    per_leaf = ("bytegroup_bf16", "byte_histogram", "chunk_histogram", "ungroup_bf16",
+                "bytegroup_fp32", "ungroup_fp32", "xor_delta_u32")
+    plan = {k: n_leaves for k in per_leaf}
+    plan["xor_elems"] = 2 * n_leaves
+    plan["bitpack_encode_chunks_single"] = n_leaves // cfg.n_layers
+    if launches != plan:
+        raise AssertionError(f"ops path launches {launches}, plan {plan}")
+    log(f"ops path: {n_leaves} stacked leaves; exponent histograms equal numpy's of the host "
+        f"planes, bf16 and fp32 round trips bit-exact, chunk histograms equal; changed bytes "
+        f"{changed_bytes} of {sum(2 * b.numel() for b in bases)} "
+        f"(Fig. 8a), changed elements {changed_elems}; layer 0's {n_leaves // cfg.n_layers} "
+        f"exponent planes coded by ops.huffman_encode_chunks equal the host encoder's "
+        f"{encoded} chunks; {t_pass:.3f} s with host checks; launches {launches}")
+    if ops_ms:
+        log(f"ops path device time (one profiler session over the pass, its host time "
+            f"{t_pass:.3f} s): the ops kernels {ops_ms:.4f} ms over {ops_n} launches; "
+            f"everything on the card, copies for the host checks included, {all_ms:.4f} ms "
+            f"over {all_n} operations, so the card is idle {1 - all_ms / 1e3 / t_pass:.4%} "
+            f"of the pass")
+    else:
+        log("ops path device time: not measured (the profiler session recorded none)")
+    return launches
+
+
 def measure_k1(store, dev):
     """K1 at a main-path shape: the feed of layer 0's largest weight (a
     3072x768 MLP weight, 18 chunks)."""
@@ -659,29 +916,28 @@ def measure_k1(store, dev):
     args = feed.launch_args()
     n_out = args.pop("out_bytes")
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
-    ms = cuda_ms(lambda: huffdecode_chunks(**args, out=out), reps=5)
+    run = lambda: huffdecode_chunks(**args, out=out)  # noqa: E731
+    ms = device_ms(run, 5)
+    kernel_ms = profiled_ms(run, r"huffdecode_kernel", 3)
     out_p = torch.empty(n_out, dtype=torch.uint8, device=dev)
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    cur_p = huffdecode_chunks_plain(**args, out=out_p)
-    stop.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(stop)
-    cur_k = huffdecode_chunks(**args, out=out)
+    plain = []                                  # one untimed-warm call: it takes ~30 s
+    plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(**args, out=out_p)), 1,
+                         warm=False)
+    cur_k = run()
     torch.cuda.synchronize()
     symbols = int(args["counts"].sum())
     syms_equal = all(
         torch.equal(out[o:o + n], out_p[o:o + n])
         for o, n in zip(args["out_off"].tolist(), args["counts"].tolist())
     )
-    if not syms_equal or not torch.equal(cur_k, cur_p):
+    if not syms_equal or not torch.equal(cur_k, plain[0]):
         raise AssertionError("K1 kernel and plain version disagree at the main-path shape")
     nbytes = sum(t.numel() * t.element_size() for t in args.values()) + symbols + 4 * cur_k.numel()
     b, by = bound_ms(nbytes, K1_OPS_PER_SYMBOL * symbols)
     log(f"K1 at {tuple(feed.shape)}: {args['counts'].numel()} chunks, {symbols} symbols, "
-        f"{args['words'].numel() * 4} payload bytes; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-        f"bound {b:.6f} ms ({by})")
-    return ms, plain_ms, b, by
+        f"{args['words'].numel() * 4} payload bytes; kernel {ms:.4f} ms (device time alone, "
+        f"profiler: {kernel_ms}), plain {plain_ms:.1f} ms, bound {b:.6f} ms ({by})")
+    return ms, plain_ms, b, by, kernel_ms
 
 
 def measure_k2(dev):
@@ -693,11 +949,14 @@ def measure_k2(dev):
     n = 768 * 3072
     g = torch.Generator(device="cpu").manual_seed(SEED + 5)
     planes = [torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g).to(dev) for _ in range(2)]
-    ms = cuda_ms(lambda: plane_consumer(planes, itemsize=2), reps=50)
-    plain_ms = cuda_ms(lambda: plane_consumer_plain(planes, itemsize=2), reps=10)
+    run = lambda: plane_consumer(planes, itemsize=2)  # noqa: E731
+    ms = device_ms(run, 50)
+    kernel_ms = profiled_ms(run, r"unplane_kernel", 20)
+    plain_ms = device_ms(lambda: plane_consumer_plain(planes, itemsize=2), 10)
     b, by = bound_ms(2 * n + 2 * n, K2_OPS_PER_ELEMENT * n)
-    log(f"K2 at n={n} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
-    return ms, plain_ms, b, by
+    log(f"K2 at n={n} bf16: kernel {ms:.5f} ms (device time alone, profiler: {kernel_ms}), "
+        f"plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    return ms, plain_ms, b, by, kernel_ms
 
 
 def measure_k3(dev):
@@ -709,18 +968,21 @@ def measure_k3(dev):
     for itemsize in (2, 4):
         for with_base in (False, True):
             x, base, chunk = k3_inputs(dev, itemsize, with_base, SEED + 11)
-            ms = cuda_ms(lambda: plane_producer(x, base, itemsize=itemsize, chunk_elems=chunk),
-                         reps=50)
-            plain_ms = cuda_ms(
-                lambda: plane_producer_plain(x, base, itemsize=itemsize, chunk_elems=chunk),
-                reps=5)
+            def run(x=x, base=base, chunk=chunk, itemsize=itemsize):
+                return plane_producer(x, base, itemsize=itemsize, chunk_elems=chunk)
+
+            ms = device_ms(run, 50)
+            kernel_ms = profiled_ms(run, r"(?<!un)plane_kernel", 20)
+            plain_ms = device_ms(
+                lambda: plane_producer_plain(x, base, itemsize=itemsize, chunk_elems=chunk), 5)
             n = x.numel()
             nbytes = n * itemsize * (3 if with_base else 2) + (n // chunk) * itemsize * 256 * 4
             b, by = bound_ms(nbytes, K3_OPS_PER_ELEMENT[itemsize] * n)
             key = f"{'bf16' if itemsize == 2 else 'fp32'}{'+base' if with_base else ''}"
-            out[key] = (ms, plain_ms, b, by)
-            log(f"K3 {key} at n={n} (chunks of {chunk}): kernel {ms:.5f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b:.6f} ms ({by}, {nbytes} B)")
+            out[key] = (ms, plain_ms, b, by, kernel_ms)
+            log(f"K3 {key} at n={n} (chunks of {chunk}): kernel {ms:.5f} ms (device time "
+                f"alone, profiler: {kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms "
+                f"({by}, {nbytes} B)")
     return out
 
 
@@ -737,18 +999,90 @@ def measure_k7(dev):
     pids = pids[:n_exp].contiguous()
     lens, codes = lens[:1].contiguous(), codes[:1].contiguous()
     run = lambda: bitpack_encode_chunks(syms, pids, lens, codes, chunk_syms=BF16_CHUNK)  # noqa: E731
-    ms = cuda_ms(run, reps=20)
-    plain_ms = cuda_ms(
-        lambda: bitpack_encode_chunks_plain(syms, pids, lens, codes, chunk_syms=BF16_CHUNK),
-        reps=3)
+    ms = device_ms(run, 20)
+    kernel_ms = profiled_ms(run, r"bitpack_kernel", 20)
+    plain_ms = device_ms(
+        lambda: bitpack_encode_chunks_plain(syms, pids, lens, codes, chunk_syms=BF16_CHUNK), 3)
     words, nbits = run()
     torch.cuda.synchronize()
     n = syms.numel()
     nbytes = n + words.numel() * 4 + 4 * nbits.numel() + 4 * pids.numel() + 2 * 4 * 256
     b, by = bound_ms(nbytes, K7_OPS_PER_SYMBOL * n)
     log(f"K7 at {n_exp} chunks of {BF16_CHUNK} exponent symbols ({int(nbits.sum())} bits): "
-        f"kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
-    return ms, plain_ms, b, by
+        f"kernel {ms:.5f} ms (device time alone, profiler: {kernel_ms}), plain "
+        f"{plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    return ms, plain_ms, b, by, kernel_ms
+
+
+def measure_ops(dev):
+    """The ops kernels at the 3072x768 leaf: ``device_ms`` means per launch,
+    the device time alone from the profiler, beside each one's bound, its
+    plain version and, where one PyTorch call computes the same function,
+    that call (``torch.bitwise_xor`` for K5, ``torch.bincount`` for K9).
+    Keys: K4/K11 and K5 by variant."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    t = ops_inputs(dev)
+    n = t["x16"].numel()
+    exp, lens, codes = t["exp"], t["lens"], t["codes"]
+    rows: dict = {}
+
+    def row(key, kernel, plain, nbytes, ops, name, library=None, library_name=None, reps=50):
+        # kernel, library, library, kernel: the two compared in turns
+        k_a = device_ms(kernel, reps)
+        lib = [device_ms(library, reps) for _ in range(2)] if library else []
+        ms = (k_a + device_ms(kernel, reps)) / 2
+        library_ms = sum(lib) / 2 if library else None
+        plain_ms = device_ms(plain, 5)
+        kernel_ms = profiled_ms(kernel, name, 20)
+        library_kernel_ms = profiled_ms(library, library_name, 20) if library_name else None
+        b, by = bound_ms(nbytes, ops)
+        rows[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": library_ms, "bytes": nbytes,
+                     "kernel_ms_profiler": kernel_ms,
+                     "library_kernel_ms_profiler": library_kernel_ms}
+        lib_txt = (f", library {library_ms:.5f} ms ({lib[0]:.5f}, {lib[1]:.5f}; device time "
+                   f"alone {library_kernel_ms})" if library else "")
+        log(f"{key} at n={n}: kernel {ms:.5f} ms ({k_a:.5f} then the second; device time "
+            f"alone, profiler: {kernel_ms}), plain {plain_ms:.4f} ms{lib_txt}, bound {b:.6f} ms "
+            f"({by}, {nbytes} B)")
+
+    for tag, w, x, grp, grp_plain, ungrp, ungrp_plain in (
+        ("bf16", 2, t["x16"], K.bytegroup_bf16, K.bytegroup_bf16_plain,
+         K.ungroup_bf16, K.ungroup_bf16_plain),
+        ("fp32", 4, t["x32"], K.bytegroup_fp32, K.bytegroup_fp32_plain,
+         K.ungroup_fp32, K.ungroup_fp32_plain),
+    ):
+        planes = grp(x)
+        nbytes = 2 * w * n
+        row(f"K4 {tag}", lambda: grp(x), lambda: grp_plain(x), nbytes,
+            BYTEGROUP_OPS_PER_BYTE * nbytes, rf"::group_{tag}\(")
+        row(f"K11 {tag}", lambda: ungrp(*planes), lambda: ungrp_plain(*planes), nbytes,
+            BYTEGROUP_OPS_PER_BYTE * nbytes, r"unplane_kernel")
+    for tag, w, a, b in (("u16", 2, t["new16"], t["x16"]), ("u32", 4, t["new32"], t["x32"])):
+        row(f"K5 {tag}", lambda: K.xor_elems(a, b), lambda: K.xor_elems_plain(a, b), 3 * w * n,
+            XOR_OPS_PER_BYTE * 3 * w * n, r"xor_kernel<false>",
+            library=lambda: torch.bitwise_xor(a, b), library_name=r"BitwiseXor")
+    a, b = t["new32"], t["x32"]
+    row("K10", lambda: K.xor_delta_u32(a, b), lambda: K.xor_delta_u32_plain(a, b),
+        12 * n + 4, XOR_OPS_PER_BYTE * 12 * n, r"xor_kernel<true>")
+    nb = exp.numel()
+    row("K6", lambda: K.chunk_histogram(exp, BF16_CHUNK),
+        lambda: K.chunk_histogram_plain(exp, BF16_CHUNK),
+        nb + -(-nb // BF16_CHUNK) * 256 * 4, HIST_OPS_PER_BYTE * nb, r"hist_kernel")
+    row("K9", lambda: K.byte_histogram(exp), lambda: K.byte_histogram_plain(exp),
+        nb + 256 * 4, HIST_OPS_PER_BYTE * nb, r"hist_kernel",
+        library=lambda: torch.bincount(exp, minlength=256))
+    c = nb // K8_CHUNK
+    # symbols in, words out (raw-size capacity), bit counts, the row ids the
+    # wrapper makes, one table
+    row("K8", lambda: K.bitpack_encode_chunks_single(exp, lens, codes, chunk_syms=K8_CHUNK),
+        lambda: K.bitpack_encode_chunks_single_plain(exp, lens, codes, chunk_syms=K8_CHUNK),
+        nb + nb + 4 * c + 4 * c + 2 * 4 * 256, K7_OPS_PER_SYMBOL * nb, r"bitpack_kernel",
+        reps=20)
+    return rows
 
 
 def main() -> int:
@@ -780,12 +1114,18 @@ def main() -> int:
     k1 = measure_k1(store, dev)
     k2 = measure_k2(dev)
     del store
-    phase_delta(dev, zcfg, params)
+    news = phase_delta(dev, zcfg, params)
+    ops_errs = phase_ops(dev)
+    ops_launches = phase_ops_path(dev, get_config("repro_gpt_100m"), params, news)
+    del news
     phase_fp32(dev, zcfg, params)
     k3 = measure_k3(dev)["bf16"]
     k7 = measure_k7(dev)
+    ops_rows = measure_ops(dev)
     reset_launch_counts()
 
+    # Every row's ms is device_ms (L2 evicted before each call) and its
+    # kernel_ms_profiler the kernel's device time alone.
     no_library = "no single PyTorch call computes it"
     kernels = [
         {"name": "huffdecode_chunks", "route": "cuda",
@@ -794,29 +1134,63 @@ def main() -> int:
          "launches": launches["huffdecode_chunks"],
          "launches_per_step": per_step["huffdecode_chunks"], "max_abs_err": k1_err,
          "ms": k1[0], "plain_ms": k1[1], "bound_ms": k1[2], "bound_by": k1[3],
-         "library_ms": None, "library": no_library},
+         "library_ms": None, "library": no_library, "kernel_ms_profiler": k1[4]},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
          "launches": launches["plane_consumer"],
          "launches_per_step": per_step["plane_consumer"], "max_abs_err": k2_err,
          "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2], "bound_by": k2[3],
-         "library_ms": None, "library": no_library},
+         "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4]},
         {"name": "plane_producer", "route": "cuda",
          "source": "src/repro_torch/csrc/plane.cu",
          "replaces": "src/repro/kernels/fused_plane.py:52",
          "launches": build_launches["plane_producer"],
          "launches_per_build": build_plan["plane_producer"], "max_abs_err": k3_err,
          "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[2], "bound_by": k3[3],
-         "library_ms": None, "library": no_library},
+         "library_ms": None, "library": no_library, "kernel_ms_profiler": k3[4]},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",
          "launches": build_launches["bitpack_encode_chunks"],
          "launches_per_build": build_plan["bitpack_encode_chunks"], "max_abs_err": k7_err,
          "ms": k7[0], "plain_ms": k7[1], "bound_ms": k7[2], "bound_by": k7[3],
-         "library_ms": None, "library": no_library},
+         "library_ms": None, "library": no_library, "kernel_ms_profiler": k7[4]},
     ]
+    # The ops kernels: launches are those of the ops path over the 108
+    # leaves; times from measure_ops (K4/K11 list both widths, K5 both
+    # operand widths; the top-level numbers are the first variant's).
+    for name, source, replaces, variants, library in (
+        ("bytegroup", "bytegroup.cu", ("bytegroup.py:63", "bytegroup.py:90"),
+         ("K4 bf16", "K4 fp32"), None),
+        ("xor_elems", "xor_delta.cu", ("xor_delta.py:39",), ("K5 u16", "K5 u32"),
+         "torch.bitwise_xor"),
+        ("chunk_histogram", "histogram.cu", ("histogram.py:74",), ("K6",), None),
+        ("bitpack_encode_chunks_single", "bitpack.cu", ("bitpack.py:78",), ("K8",), None),
+        ("byte_histogram", "histogram.cu", ("histogram.py:41",), ("K9",),
+         "torch.bincount(x, minlength=256)"),
+        ("xor_delta_u32", "xor_delta.cu", ("xor_delta.py:59",), ("K10",), None),
+        ("ungroup", "unplane.cu", ("bytegroup.py:77", "bytegroup.py:104"),
+         ("K11 bf16", "K11 fp32"), None),
+    ):
+        first = ops_rows[variants[0]]
+        counters = {"bytegroup": ("bytegroup_bf16", "bytegroup_fp32"),
+                    "ungroup": ("ungroup_bf16", "ungroup_fp32")}.get(name, (name,))
+        entry = {
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces[0]}",
+            "launches": sum(ops_launches.get(k, 0) for k in counters),
+            "max_abs_err": ops_errs[name],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "library": library or no_library,
+            "kernel_ms_profiler": first["kernel_ms_profiler"],
+        }
+        if len(variants) > 1:
+            entry["variants"] = {v: ops_rows[v] for v in variants}
+        if len(replaces) > 1:
+            entry["replaces_also"] = [f"src/repro/kernels/{r}" for r in replaces[1:]]
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

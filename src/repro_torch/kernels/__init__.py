@@ -3,25 +3,67 @@
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors, and counts its launches in a ``launches``
 attribute (kernel launches only; plain runs are not counted).
+:mod:`.ops` is the public face of K4–K6 and K8–K11, the counterpart of the
+reference's ``repro.kernels.ops``.
 """
 
 from typing import Dict
 
-from .bitpack import bitpack_encode_chunks, bitpack_encode_chunks_plain
+from .bitpack import (
+    bitpack_encode_chunks,
+    bitpack_encode_chunks_plain,
+    bitpack_encode_chunks_single,
+    bitpack_encode_chunks_single_plain,
+)
+from .bytegroup import (
+    bytegroup_bf16,
+    bytegroup_bf16_plain,
+    bytegroup_fp32,
+    bytegroup_fp32_plain,
+    ungroup_bf16,
+    ungroup_bf16_plain,
+    ungroup_fp32,
+    ungroup_fp32_plain,
+)
 from .fused_plane import plane_producer, plane_producer_plain
 from .fused_unplane import plane_consumer, plane_consumer_plain
+from .histogram import (
+    byte_histogram,
+    byte_histogram_plain,
+    chunk_histogram,
+    chunk_histogram_plain,
+)
 from .huffdecode import huffdecode_chunks, huffdecode_chunks_plain
+from .xor_delta import xor_delta_u32, xor_delta_u32_plain, xor_elems, xor_elems_plain
 
 __all__ = [
     "KERNELS",
     "bitpack_encode_chunks",
     "bitpack_encode_chunks_plain",
+    "bitpack_encode_chunks_single",
+    "bitpack_encode_chunks_single_plain",
+    "byte_histogram",
+    "byte_histogram_plain",
+    "bytegroup_bf16",
+    "bytegroup_bf16_plain",
+    "bytegroup_fp32",
+    "bytegroup_fp32_plain",
+    "chunk_histogram",
+    "chunk_histogram_plain",
     "huffdecode_chunks",
     "huffdecode_chunks_plain",
     "plane_consumer",
     "plane_consumer_plain",
     "plane_producer",
     "plane_producer_plain",
+    "ungroup_bf16",
+    "ungroup_bf16_plain",
+    "ungroup_fp32",
+    "ungroup_fp32_plain",
+    "xor_delta_u32",
+    "xor_delta_u32_plain",
+    "xor_elems",
+    "xor_elems_plain",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -31,6 +73,15 @@ KERNELS = {
     "plane_consumer": plane_consumer,
     "plane_producer": plane_producer,
     "bitpack_encode_chunks": bitpack_encode_chunks,
+    "bytegroup_bf16": bytegroup_bf16,
+    "bytegroup_fp32": bytegroup_fp32,
+    "xor_elems": xor_elems,
+    "chunk_histogram": chunk_histogram,
+    "bitpack_encode_chunks_single": bitpack_encode_chunks_single,
+    "byte_histogram": byte_histogram,
+    "xor_delta_u32": xor_delta_u32,
+    "ungroup_bf16": ungroup_bf16,
+    "ungroup_fp32": ungroup_fp32,
 }
 
 

@@ -38,7 +38,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels: this file is <checkout>/src/repro_torch/kernels/_build.py
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("huffdecode", "unplane", "plane", "bitpack")
+SOURCES = ("huffdecode", "unplane", "plane", "bitpack", "xor_delta", "histogram", "bytegroup")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

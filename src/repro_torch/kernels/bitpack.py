@@ -24,6 +24,11 @@ chunk whose codes take more than its raw size (``8 * chunk_syms`` bits)
 keeps only its first ``chunk_syms / 4`` words but reports its full bit
 count: the host stores such a chunk raw.  Both equal, bit for bit, what
 the reference's ``bitpack_encode_chunks_multi`` returns.
+
+Kernel K8, :func:`bitpack_encode_chunks_single`, is the same kernel
+launched with one table for every chunk, the counterpart of the
+reference's single-table ``bitpack_encode_chunks``; it counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -36,7 +41,13 @@ import torch
 
 from . import _build
 
-__all__ = ["MAXL", "bitpack_encode_chunks", "bitpack_encode_chunks_plain"]
+__all__ = [
+    "MAXL",
+    "bitpack_encode_chunks",
+    "bitpack_encode_chunks_plain",
+    "bitpack_encode_chunks_single",
+    "bitpack_encode_chunks_single_plain",
+]
 
 MAXL = 15                      # the encoder's length-limited code lengths
 
@@ -93,11 +104,19 @@ def bitpack_encode_chunks(
     """Pack chunk ``i`` of ``syms`` under table row ``plane_ids[i]``;
     returns (int32 words ``(C, chunk_syms / 4)``, int32 bit counts ``(C,)``)."""
     c = _check_args(syms, plane_ids, len_tables, code_tables, chunk_syms)
-    dev = syms.device
-    if dev.type == "cpu":
+    if syms.device.type == "cpu":
         return bitpack_encode_chunks_plain(
             syms, plane_ids, len_tables, code_tables, chunk_syms=chunk_syms
         )
+    return _launch(bitpack_encode_chunks, c, syms, plane_ids, len_tables, code_tables, chunk_syms)
+
+
+bitpack_encode_chunks.launches = 0
+
+
+def _launch(fn, c, syms, plane_ids, len_tables, code_tables, chunk_syms):
+    """Launch the kernel for ``c`` checked chunks and count it on ``fn``."""
+    dev = syms.device
     if dev.type != "cuda":
         raise ValueError(f"bitpack: unsupported device {dev}")
     if syms.data_ptr() % 4:
@@ -111,12 +130,9 @@ def bitpack_encode_chunks(
         code_tables.data_ptr(), len_tables.shape[0], words.data_ptr(),
         nbits.data_ptr(), c, chunk_syms, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check("bitpack", rc, "bitpack_encode_chunks launch")
-    bitpack_encode_chunks.launches += 1
+    _build.check("bitpack", rc, f"{fn.__name__} launch")
+    fn.launches += 1
     return words, nbits
-
-
-bitpack_encode_chunks.launches = 0
 
 
 def bitpack_encode_chunks_plain(
@@ -151,3 +167,51 @@ def bitpack_encode_chunks_plain(
     out.index_add_(0, (row + w + 1)[keep], second[keep])
     # narrowing to int32 keeps the low 32 bits: the uint32 word's bits
     return out.to(torch.int32).view(c, cap), ends[:, -1].to(torch.int32)
+
+
+def _single_args(syms, len_table, code_table, chunk_syms):
+    """K7's arguments for one table: every chunk on row 0."""
+    if len_table.shape != (256,) or code_table.shape != (256,):
+        raise ValueError("bitpack: the single table must be two (256,) tensors")
+    c = syms.numel() // chunk_syms if chunk_syms > 0 else 0
+    plane_ids = torch.zeros(c, dtype=torch.int32, device=syms.device)
+    return syms, plane_ids, len_table.view(1, 256), code_table.view(1, 256)
+
+
+def bitpack_encode_chunks_single(
+    syms: torch.Tensor,
+    len_table: torch.Tensor,
+    code_table: torch.Tensor,
+    *,
+    chunk_syms: int = 1 << 13,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K8: pack every chunk of ``syms`` under one table (int32
+    ``(256,)`` lengths and codes); returns (int32 words ``(C, chunk_syms /
+    4)``, int32 bit counts ``(C,)``).
+
+    The counterpart of the reference's ``repro.kernels.bitpack.
+    bitpack_encode_chunks``, which shares its kernel body with the
+    per-chunk-table ``bitpack_encode_chunks_multi``.  The port's
+    :func:`bitpack_encode_chunks` is the counterpart of ``_multi``; this
+    launches its kernel with one table row.
+    """
+    args = _single_args(syms, len_table, code_table, chunk_syms)
+    c = _check_args(*args, chunk_syms)
+    if syms.device.type == "cpu":
+        return bitpack_encode_chunks_plain(*args, chunk_syms=chunk_syms)
+    return _launch(bitpack_encode_chunks_single, c, *args, chunk_syms)
+
+
+bitpack_encode_chunks_single.launches = 0
+
+
+def bitpack_encode_chunks_single_plain(
+    syms: torch.Tensor,
+    len_table: torch.Tensor,
+    code_table: torch.Tensor,
+    *,
+    chunk_syms: int = 1 << 13,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K8: the plain K7 with every chunk on one table row."""
+    args = _single_args(syms, len_table, code_table, chunk_syms)
+    return bitpack_encode_chunks_plain(*args, chunk_syms=chunk_syms)

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .bytegroup import group_plain
 
 __all__ = ["ELEM_DTYPES", "CHUNK_ALIGN_BYTES", "plane_producer", "plane_producer_plain"]
 
@@ -116,29 +117,15 @@ def plane_producer_plain(
     itemsize: int,
     chunk_elems: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K3 in int32 (2-byte) / int64 (4-byte) lanes with masks
-    (CPU PyTorch has no shifts on unsigned 16/32-bit tensors); the
-    histograms are one ``bincount`` over (chunk, plane, byte) keys."""
+    """Plain PyTorch K3: the XOR on the element bits, K4's plain rotate and
+    split, and the histograms as one ``bincount`` over (chunk, plane,
+    byte) keys."""
     n = _check_args(x, base, itemsize, chunk_elems)
     dev = x.device
-    if itemsize == 2:
-        v = x.to(torch.int32) & 0xFFFF
-        if base is not None:
-            v = v ^ (base.to(torch.int32) & 0xFFFF)
-        rot = ((v << 1) | (v >> 15)) & 0xFFFF
-        planes = torch.stack([rot >> 8, rot & 0xFF])
-    else:
-        v = x.to(torch.int64) & 0xFFFFFFFF
-        if base is not None:
-            v = v ^ (base.to(torch.int64) & 0xFFFFFFFF)
-        rot = ((v << 1) | (v >> 31)) & 0xFFFFFFFF
-        planes = torch.stack([(rot >> s) & 0xFF for s in (24, 16, 8, 0)])
+    planes = torch.stack(group_plain(x if base is None else x ^ base, itemsize))
     n_chunks = n // chunk_elems
     chunk = torch.arange(n, device=dev) // chunk_elems
     row = chunk.view(1, n) * itemsize + torch.arange(itemsize, device=dev).view(itemsize, 1)
     keys = (row * 256 + planes.to(torch.int64)).reshape(-1)
     hists = torch.bincount(keys, minlength=n_chunks * itemsize * 256)
-    return (
-        planes.to(torch.uint8),
-        hists.to(torch.int32).view(n_chunks, itemsize, 256),
-    )
+    return planes, hists.to(torch.int32).view(n_chunks, itemsize, 256)

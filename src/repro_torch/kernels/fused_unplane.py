@@ -72,24 +72,31 @@ def plane_consumer(
     XOR ``base`` when given; returns int16/int32 element bits."""
     planes = list(planes)
     n = _check_args(planes, base, itemsize)
-    dev = planes[0].device
-    if dev.type == "cpu":
+    if planes[0].device.type == "cpu":
         return plane_consumer_plain(planes, base, itemsize=itemsize)
-    if dev.type != "cuda":
-        raise ValueError(f"plane consumer: unsupported device {dev}")
-    fn = _launcher()
-    out = torch.empty(n, dtype=ELEM_DTYPES[itemsize], device=dev)
-    ptrs = [p.data_ptr() for p in planes] + [None] * (4 - itemsize)
-    rc = fn(
-        *ptrs, None if base is None else base.data_ptr(), out.data_ptr(),
-        n, itemsize, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("unplane", rc, "plane_consumer launch")
-    plane_consumer.launches += 1
-    return out
+    return launch(plane_consumer, planes, base, itemsize, n)
 
 
 plane_consumer.launches = 0
+
+
+def launch(fn, planes, base, itemsize, n) -> torch.Tensor:
+    """Launch the kernel on ``n`` checked elements and count it on ``fn``;
+    K11 (``bytegroup.ungroup_*``) launches it without a base."""
+    dev = planes[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn.__name__}: unsupported device {dev}")
+    out = torch.empty(n, dtype=ELEM_DTYPES[itemsize], device=dev)
+    if n == 0:
+        return out
+    ptrs = [p.data_ptr() for p in planes] + [None] * (4 - itemsize)
+    rc = _launcher()(
+        *ptrs, None if base is None else base.data_ptr(), out.data_ptr(),
+        n, itemsize, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("unplane", rc, f"{fn.__name__} launch")
+    fn.launches += 1
+    return out
 
 
 def plane_consumer_plain(

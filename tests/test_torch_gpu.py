@@ -6,8 +6,8 @@ them on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Contract: each kernel equals its plain PyTorch version on the same card
-tensors bit for bit (integer bit work: no tolerance), each wrapper counts
+Contract: each kernel (K1–K11) equals its plain PyTorch version on the
+same card tensors bit for bit (integer bit work: no tolerance), each wrapper counts
 its launches, blobs encoded on the card equal the host's byte for byte
 (tensors and delta streams, which also round-trip), and the compressed
 ring's logits equal the plain step's bit for bit on the card.
@@ -25,6 +25,16 @@ from repro_torch.core.options import CodecOptions
 from repro_torch.kernels import (
     bitpack_encode_chunks,
     bitpack_encode_chunks_plain,
+    bitpack_encode_chunks_single,
+    bitpack_encode_chunks_single_plain,
+    byte_histogram,
+    byte_histogram_plain,
+    bytegroup_bf16,
+    bytegroup_bf16_plain,
+    bytegroup_fp32,
+    bytegroup_fp32_plain,
+    chunk_histogram,
+    chunk_histogram_plain,
     huffdecode_chunks,
     huffdecode_chunks_plain,
     launch_counts,
@@ -33,7 +43,16 @@ from repro_torch.kernels import (
     plane_producer,
     plane_producer_plain,
     reset_launch_counts,
+    ungroup_bf16,
+    ungroup_bf16_plain,
+    ungroup_fp32,
+    ungroup_fp32_plain,
+    xor_delta_u32,
+    xor_delta_u32_plain,
+    xor_elems,
+    xor_elems_plain,
 )
+from repro_torch.kernels import ops
 from repro_torch.models import decode_step, init_decode_state
 from repro_torch.models.model import param_shapes
 from repro_torch.serve import CompressedParamStore, make_compressed_serve_step
@@ -87,6 +106,28 @@ def test_k2_kernel_matches_plain(cuda, itemsize, with_base):
     p = plane_consumer_plain(planes, base, itemsize=itemsize)
     assert launch_counts()["plane_consumer"] == 1
     assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_k2_k11_vector_and_element_paths(cuda, itemsize, offset):
+    # offset 0: 16-byte aligned operands, 16 elements a thread and a ragged
+    # end; offset 1: no aligned plane, element by element.  K11 is the same
+    # kernel without a base and counts its own launches.
+    n = 100_003
+    dt = torch.int16 if itemsize == 2 else torch.int32
+    g = torch.Generator().manual_seed(20 + 2 * itemsize + offset)
+    planes = [torch.randint(0, 256, (n + offset,), dtype=torch.uint8, generator=g)
+              .to(cuda)[offset:] for _ in range(itemsize)]
+    base = torch.randint(torch.iinfo(dt).min, torch.iinfo(dt).max, (n + offset,), dtype=dt,
+                         generator=g).to(cuda)[offset:]
+    ungroup = ungroup_bf16 if itemsize == 2 else ungroup_fp32
+    reset_launch_counts()
+    k = plane_consumer(planes, base, itemsize=itemsize)
+    assert torch.equal(k, plane_consumer_plain(planes, base, itemsize=itemsize))
+    assert torch.equal(ungroup(*planes), plane_consumer_plain(planes, itemsize=itemsize))
+    counts = launch_counts()
+    assert counts["plane_consumer"] == 1 and counts[ungroup.__name__] == 1
 
 
 def test_corrupt_payload_raises_on_card(cuda):
@@ -224,3 +265,108 @@ def test_delta_round_trip_on_card(cuda):
     assert dev.blob == host.blob
     out = zipnn.delta_decompress(dev, base.to(cuda), cfg, device_resident=True, device=cuda)
     assert out.is_cuda and torch.equal(out.cpu().view(torch.int16), new.view(torch.int16))
+
+
+# K4-K6 and K8-K11.  ``offset`` starts the operands one element into a
+# buffer, so no pointer is 16-byte aligned and the kernels take their
+# element-by-element path; n = 100,003 leaves a ragged end on the aligned
+# path.
+def _card_bits(n, itemsize, seed, cuda, offset=0):
+    dt = torch.int16 if itemsize == 2 else torch.int32
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(n + offset, generator=g) * 0.02
+    x = (w.to(torch.bfloat16) if itemsize == 2 else w).view(dt)
+    return x.to(cuda)[offset:]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 100_003, 1 << 20])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_k4_k11_kernels_match_plain(cuda, itemsize, n, offset):
+    x = _card_bits(n, itemsize, n + itemsize, cuda, offset)
+    group, group_plain, ungroup, ungroup_plain = (
+        (bytegroup_bf16, bytegroup_bf16_plain, ungroup_bf16, ungroup_bf16_plain) if itemsize == 2
+        else (bytegroup_fp32, bytegroup_fp32_plain, ungroup_fp32, ungroup_fp32_plain)
+    )
+    reset_launch_counts()
+    pk = group(x)
+    pp = group_plain(x)
+    assert len(pk) == itemsize and all(torch.equal(a, b) for a, b in zip(pk, pp))
+    planes = [torch.cat([p.new_zeros(offset), p])[offset:] for p in pk]     # misaligned too
+    back = ungroup(*planes)
+    assert torch.equal(back, ungroup_plain(*planes)) and torch.equal(back, x)
+    counts = launch_counts()
+    assert counts[group.__name__] == 1 and counts[ungroup.__name__] == 1
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 100_003, 1 << 20])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_k5_k10_kernels_match_plain(cuda, itemsize, n, offset):
+    a = _card_bits(n, itemsize, n, cuda, offset)
+    b = a.clone()
+    b[::3] = _card_bits(n, itemsize, n + 1, cuda)[::3]           # some elements change
+    reset_launch_counts()
+    d = xor_elems(a, b)
+    assert torch.equal(d, xor_elems_plain(a, b))
+    assert launch_counts()["xor_elems"] == 1
+    if itemsize == 4:
+        dk, ck = xor_delta_u32(a, b)
+        dp, cp = xor_delta_u32_plain(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, dp) and int(ck) == int(cp) > 0
+        assert int(ck) == int((d.cpu().view(torch.uint8) != 0).sum())
+        assert launch_counts()["xor_delta_u32"] == 1
+
+
+@pytest.mark.parametrize("n, chunk, offset", [
+    (1, 7, 0), (100_003, 3000, 0), (100_003, 3000, 5), (1 << 20, 131_072, 0),
+    (1 << 20, 50_000, 3),
+])
+def test_k6_k9_kernels_match_plain(cuda, n, chunk, offset):
+    rng = np.random.default_rng(n + chunk)
+    skewed = np.clip(rng.normal(120, 3, n + offset), 0, 255).astype(np.uint8)
+    x = torch.from_numpy(skewed).to(cuda)[offset:]
+    reset_launch_counts()
+    hk, hp = chunk_histogram(x, chunk), chunk_histogram_plain(x, chunk)
+    bk, bp = byte_histogram(x), byte_histogram_plain(x)
+    torch.cuda.synchronize()
+    assert hk.shape == (-(-n // chunk), 256) and torch.equal(hk, hp)
+    assert torch.equal(bk, bp) and int(bk.sum()) == n
+    assert launch_counts()["chunk_histogram"] == 1 and launch_counts()["byte_histogram"] == 1
+
+
+def test_k8_kernel_matches_plain(cuda):
+    chunk = 8192
+    rng = np.random.default_rng(4)
+    skewed = np.clip(rng.normal(120, 3, 3 * chunk), 0, 255).astype(np.uint8)
+    lens = huffman.code_lengths(np.bincount(skewed, minlength=256) + 1)
+    codes = huffman.canonical_codes(lens)
+    syms = np.concatenate([skewed[: 2 * chunk], rng.integers(0, 256, chunk).astype(np.uint8)])
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        syms, lens.astype(np.int32), codes.astype(np.int32))]
+    reset_launch_counts()
+    wk, nk = bitpack_encode_chunks_single(*args, chunk_syms=chunk)
+    wp, np_ = bitpack_encode_chunks_single_plain(*args, chunk_syms=chunk)
+    torch.cuda.synchronize()
+    assert int(nk[2]) > 8 * chunk                         # expanded past capacity
+    assert torch.equal(nk, np_) and torch.equal(wk, wp)
+    counts = launch_counts()
+    assert counts["bitpack_encode_chunks_single"] == 1 and counts["bitpack_encode_chunks"] == 0
+
+
+def test_ops_on_card_match_ops_on_cpu(cuda):
+    """The public ops on card tensors give the CPU's results, and a numpy
+    encode goes to the card by default."""
+    x = _card_bits(50_001, 2, 9, cuda)
+    exp, frac = ops.bytegroup_bf16(x.view(torch.uint16))
+    cexp, cfrac = ops.bytegroup_bf16(x.cpu())
+    assert exp.is_cuda and torch.equal(exp.cpu(), cexp) and torch.equal(frac.cpu(), cfrac)
+    assert torch.equal(ops.byte_histogram(exp).cpu(), ops.byte_histogram(cexp))
+    lens = huffman.code_lengths(np.bincount(cexp.numpy(), minlength=256))
+    codes = huffman.canonical_codes(lens)
+    reset_launch_counts()
+    on_card = ops.huffman_encode_chunks(cexp.numpy(), lens, codes)
+    assert launch_counts()["bitpack_encode_chunks_single"] == 1
+    assert on_card == ops.huffman_encode_chunks(cexp.numpy(), lens, codes, device="cpu")
+    assert on_card == ops.huffman_encode_chunks(exp, lens, codes)
