@@ -10,8 +10,10 @@ without printing the final line:
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: ``nvcc`` of every kernel source (one process each, in parallel);
 3. kernels against their plain PyTorch versions on the card, bit-exact:
-   K1 (Huffman decode) on a 768x768 bf16 leaf at 8 KiB chunks, plus a
-   corrupted payload that must raise; K2 (plane consumer), all four
+   K1 (Huffman decode) on a 768x768 bf16 leaf at 8 KiB chunks in its three
+   launch forms (the sync decode from a feed's sync index, the serial
+   decode, the index pass), plus a corrupted payload that must raise at a
+   one-shot decode and at a feed's build; K2 (plane consumer), all four
    variants, at a 768x3072 leaf's size; K3 (plane producer), all four
    variants with their histograms, at the same size; K7 (Huffman
    bit-pack) on the exponent and mantissa planes of a 3072x768 bf16 leaf
@@ -29,8 +31,12 @@ without printing the final line:
    ``make_compressed_serve_step`` + ``greedy_generate`` serve B=4
    requests of a 16-token prompt and 16 greedy tokens against the plain
    decode step on the same requests: logits bit-identical, K1/K2 launch
-   counts equal to the layer plan's, no payload upload after the store
-   build, at most ``ring`` decoded layers resident;
+   counts equal to the layer plan's (the sync decode only; the index pass
+   once per leaf at build), no payload upload after the store build, at
+   most ``ring`` decoded layers resident.  Then the sync decode on all 108
+   leaves against its plain version and the serial kernel, and one
+   ``torch.profiler`` session over a few ring steps: each step's decode and
+   compute device time and the card's idle share;
 6. delta at full width: the 12 layers' stacks after one simulated
    fine-tuning step (``new = bf16(base + 1e-4 * N(0, 1))``) delta-coded on
    the card must equal the host's blobs and decode back to ``new`` bit
@@ -55,10 +61,11 @@ without printing the final line:
    host's blobs and round-trip bit-exactly;
 10. measurements, every kernel timed one way: CUDA events around each
     launch with L2 evicted before it (``device_ms``) and the device time
-    alone from ``torch.profiler`` (``profiled_ms``), for K1, K2, K3 and K7
-    at the main path's shapes and the ops kernels at the 3072x768 leaf,
-    beside their plain versions and ``torch.bitwise_xor`` (K5) and
-    ``torch.bincount`` (K9);
+    alone from ``torch.profiler`` (``profiled_ms``), for K1 (the sync
+    decode and the index pass in turns, and the sync decode at 256, 512 and
+    1,024 symbols a sub-stream), K2, K3 and K7 at the main path's shapes and
+    the ops kernels at the 3072x768 leaf, beside their plain versions and
+    ``torch.bitwise_xor`` (K5) and ``torch.bincount`` (K9);
 11. report: store sizes, build times, tokens/s, the ``kernels`` JSON line,
     and last ``{"ok": true, "device": {...}}``.
 """
@@ -220,11 +227,16 @@ def phase_build():
 
 
 def phase_k1(dev):
-    """K1 kernel vs plain on a real leaf; a corrupted payload must raise."""
+    """K1's three launch forms vs their plain versions on a real leaf (the
+    index pass, the sync decode, the serial decode); a corrupted payload
+    must raise, at a one-shot decode and at a feed's build."""
     import torch
 
     from repro_torch.core import codec, container, device_entropy, zipnn
-    from repro_torch.kernels import huffdecode_chunks, huffdecode_chunks_plain
+    from repro_torch.kernels import (
+        huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index, huffdecode_index_plain,
+        huffdecode_serial,
+    )
 
     rng = np.random.default_rng(SEED + 1)
     leaf = torch.from_numpy(
@@ -243,19 +255,29 @@ def phase_k1(dev):
     if args is None:
         raise AssertionError("K1 check leaf has no HUFF chunks")
     n_out = args.pop("out_bytes")
-    out_k = torch.zeros(n_out, dtype=torch.uint8, device=dev)
-    out_p = torch.zeros(n_out, dtype=torch.uint8, device=dev)
-    cur_k = huffdecode_chunks(**args, out=out_k)
-    cur_p = huffdecode_chunks_plain(**args, out=out_p)
+    sync, sync_off = args.pop("sync"), args.pop("sync_off")
+    outs = [torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(6)]
+    cur = [
+        huffdecode_chunks(**args, out=outs[0], sync=sync, sync_off=sync_off),
+        huffdecode_chunks_plain(**args, out=outs[1], sync=sync, sync_off=sync_off),
+        huffdecode_serial(**args, out=outs[2]),
+        huffdecode_chunks_plain(**args, out=outs[3]),
+    ]
+    cur_i, sync_i = huffdecode_index(**args, out=outs[4], sync_off=sync_off)
+    cur_ip, sync_ip = huffdecode_index_plain(**args, out=outs[5], sync_off=sync_off)
     torch.cuda.synchronize()
-    if not torch.equal(out_k, out_p) or not torch.equal(cur_k, cur_p):
-        raise AssertionError("K1 kernel and plain version disagree")
-    err = int((out_k.to(torch.int32) - out_p.to(torch.int32)).abs().max())
+    if not all(torch.equal(outs[0], o) for o in outs[1:]) or not all(
+            torch.equal(cur[0], c) for c in cur[1:] + [cur_i, cur_ip]):
+        raise AssertionError("K1's launch forms and their plain versions disagree")
+    if not torch.equal(sync_i, sync) or not torch.equal(sync_ip, sync):
+        raise AssertionError("K1's index pass and its plain version disagree on the index")
+    err = max(max_abs_diff(outs[0], o) for o in outs[1:])
     back = zipnn.decompress_array(ct, cfg, device_resident=True, device=dev)
     if not torch.equal(back.cpu().view(torch.int16), leaf.view(torch.int16)):
         raise AssertionError("K1+K2 decode of the check leaf is not bit-exact")
-    log(f"K1 vs plain: {int(args['counts'].numel())} chunks of "
-        f"{meta.chunk_bytes} symbols, symbols and cursors equal")
+    log(f"K1 vs plain: {int(args['counts'].numel())} chunks of {meta.chunk_bytes} symbols, "
+        f"{sync.numel()} sync points; sync decode, serial decode and index pass equal their "
+        f"plain versions (symbols, cursors, index)")
 
     # Corruption: truncate one HUFF payload and re-seal its CRC, so only
     # the kernel's cursor check can catch it.
@@ -267,12 +289,16 @@ def phase_k1(dev):
     bad[p][c] = bad[p][c][:-2]
     entries[p][c].comp_len = len(bad[p][c])
     entries[p][c].crc = zlib.crc32(bad[p][c])
-    try:
-        device_entropy.decode_planes(entries, bad, meta.tables, params, device=dev)
-    except ValueError as e:
-        log(f"K1 corrupted payload raised: {e}")
-    else:
-        raise AssertionError("a truncated HUFF payload decoded without error")
+    for what, build in (
+        ("one-shot decode", device_entropy.decode_planes),
+        ("feed build", device_entropy.PayloadFeed),
+    ):
+        try:
+            build(entries, bad, meta.tables, params, device=dev)
+        except ValueError as e:
+            log(f"K1 corrupted payload raised at the {what}: {e}")
+        else:
+            raise AssertionError(f"a truncated HUFF payload passed the {what}")
     flipped = bytearray(ct.blob)
     flipped[meta.payload_offsets[p][c]] ^= 0x40
     try:
@@ -515,7 +541,9 @@ def phase_main(dev, cfg, zcfg):
         huff_leaves += sum(has_huff(b) for b in want)
     if build_uploads["symbol_uploads"]:
         raise AssertionError(f"the device build uploaded HUFF symbols: {build_uploads}")
-    build_plan = {"plane_producer": cfg.n_layers, "bitpack_encode_chunks": huff_leaves}
+    # K1's index pass is each feed's warmup
+    build_plan = {"plane_producer": cfg.n_layers, "bitpack_encode_chunks": huff_leaves,
+                  "huffdecode_index": huff_leaves}
     for name, n in build_plan.items():
         if build_launches[name] == 0 or build_launches[name] != n:
             raise AssertionError(
@@ -543,15 +571,20 @@ def phase_main(dev, cfg, zcfg):
             if not torch.equal(g.view(torch.int16), w.view(torch.int16)):
                 raise AssertionError(f"layer {i} does not decode bit-exactly")
     store.reset_peak()
-    parts = {"words": 0, "luts": 0, "index": 0}
+    parts = {"words": 0, "luts": 0, "index": 0, "sync": 0}
     for f in (f for layer in feeds for f in layer):
         a = f.launch_args() or {}
         for k in ("words", "luts"):
             parts[k] += a[k].numel() * a[k].element_size() if k in a else 0
         parts["index"] += sum(a[k].numel() * a[k].element_size()
                               for k in ("word_off", "plane_ids", "counts", "out_off") if k in a)
+        parts["sync"] += sum(a[k].numel() * a[k].element_size()
+                             for k in ("sync", "sync_off") if k in a)
     parts["splice"] = store.device_payload_bytes - sum(parts.values())
-    log(f"device payload bytes by part: {parts}")
+    log(f"device payload bytes by part: {parts}; the sync index is "
+        f"{parts['sync'] / store.device_payload_bytes:.4%} of them")
+    if parts["sync"] > 0.01 * store.device_payload_bytes:
+        raise AssertionError("the sync index takes more than 1% of the feeds' bytes")
     log(f"store: ratio_pct {store.ratio_pct:.3f} comp_bytes {store.comp_bytes} "
         f"device_payload_bytes {store.device_payload_bytes} raw_bytes {store.raw_bytes} "
         f"static_bytes {store.static_bytes} footprint_bytes(ring={RING}) "
@@ -603,6 +636,8 @@ def phase_main(dev, cfg, zcfg):
             raise AssertionError(
                 f"{name}: {launches[name]} launches, layer plan predicts {n * n_steps}"
             )
+    if launches["huffdecode_serial"] or launches["huffdecode_index"]:
+        raise AssertionError(f"the ring ran a serial K1: {launches}")
     if uploads["payload_uploads"]:
         raise AssertionError(f"ring uploaded payloads after warmup: {uploads}")
     if store.peak_resident > RING:
@@ -615,6 +650,98 @@ def phase_main(dev, cfg, zcfg):
         f"compressed_ring {tokens / t_ring:.2f} ({t_ring:.3f} s)")
     log(f"launches per step: {per_step} (main-path run: {launches})")
     return store, params, launches, per_step, n_steps, build_launches, build_plan
+
+
+def check_k1_leaves(store, dev):
+    """The sync decode on every leaf of the main path against its plain
+    version and the serial kernel: symbols and final cursors."""
+    import torch
+
+    from repro_torch.kernels import huffdecode_chunks, huffdecode_chunks_plain, huffdecode_serial
+
+    n = symbols = 0
+    for layer in store.feeds("layers"):
+        for feed in layer:
+            args = feed.launch_args()
+            if args is None:
+                continue
+            n_out = args.pop("out_bytes")
+            sync, sync_off = args.pop("sync"), args.pop("sync_off")
+            outs = [torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(3)]
+            cur = [huffdecode_chunks(**args, out=outs[0], sync=sync, sync_off=sync_off),
+                   huffdecode_chunks_plain(**args, out=outs[1], sync=sync, sync_off=sync_off),
+                   huffdecode_serial(**args, out=outs[2])]
+            torch.cuda.synchronize()
+            if not all(torch.equal(outs[0], o) for o in outs[1:]) or not all(
+                    torch.equal(cur[0], c) for c in cur[1:]):
+                raise AssertionError(f"K1 sync decode disagrees on a leaf of shape {feed.shape}")
+            n += 1
+            symbols += int(args["counts"].sum())
+    log(f"K1 sync decode on all {n} leaves of the main path ({symbols} symbols): symbols and "
+        f"final cursors equal its plain version and the serial kernel")
+    return n
+
+
+def profile_ring(dev, cfg, store, steps=6):
+    """One ``torch.profiler`` session over ``steps`` ring steps (B=BATCH),
+    each ended by a synchronize: per step the device time of the decode
+    (the side stream: K1, K2 and the splice copies) and of the compute
+    (every other stream), and the card's idle share (wall time the device
+    runs nothing).  The trace goes to build/ring_trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import init_decode_state
+    from repro_torch.serve import make_compressed_serve_step
+
+    rng = np.random.default_rng(SEED + 14)
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (steps + 1, BATCH, 1)).astype(np.int32)).to(dev)
+    cstep = make_compressed_serve_step(cfg, store, ring=RING)
+    state = init_decode_state(cfg, BATCH, steps + 1, start_pos=0, device=dev)
+    _, state = cstep(state, toks[0])                        # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(steps):
+            with record_function(f"ring_step_{t}"):
+                _, state = cstep(state, toks[t + 1])
+                torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "ring_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("name", "").startswith("ring_step_")
+             and e.get("cat") == "user_annotation"}
+    dev_ev = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    side = {e["args"].get("stream") for e in dev_ev if "huffdecode_sync_kernel" in e["name"]}
+    if len(spans) != steps or not dev_ev or len(side) != 1:
+        raise AssertionError(f"ring trace: {len(spans)} step spans, {len(dev_ev)} device "
+                             f"events, decode streams {side}")
+    rows = []
+    for t in range(steps):
+        lo, hi = spans[f"ring_step_{t}"]
+        inside = [e for e in dev_ev if lo <= e["ts"] and e["ts"] + e["dur"] <= hi]
+        busy, end = 0.0, lo
+        for e in sorted(inside, key=lambda e: e["ts"]):          # union of intervals
+            a, b = max(e["ts"], end), e["ts"] + e["dur"]
+            if b > a:
+                busy += b - a
+                end = b
+        decode = sum(e["dur"] for e in inside if e["args"].get("stream") in side)
+        k1 = sum(e["dur"] for e in inside if "huffdecode_sync_kernel" in e["name"])
+        compute = sum(e["dur"] for e in inside if e["args"].get("stream") not in side)
+        rows.append({"step_ms": (hi - lo) / 1e3, "decode_ms": decode / 1e3, "k1_ms": k1 / 1e3,
+                     "compute_ms": compute / 1e3, "idle": 1 - busy / (hi - lo)})
+    mean = {k: sum(r[k] for r in rows) / steps for k in rows[0]}
+    log(f"ring trace over {steps} steps (B={BATCH}, profiler on, a synchronize ending each "
+        f"step): mean step {mean['step_ms']:.4f} ms, decode (side stream) "
+        f"{mean['decode_ms']:.4f} ms of which K1 {mean['k1_ms']:.4f} ms, compute "
+        f"{mean['compute_ms']:.4f} ms, card idle {mean['idle']:.4%} of the step")
+    log("ring trace per step: " + json.dumps(rows))
+    return mean
 
 
 def has_huff(blob: bytes) -> bool:
@@ -904,40 +1031,84 @@ def phase_ops_path(dev, cfg, params, news):
 
 
 def measure_k1(store, dev):
-    """K1 at a main-path shape: the feed of layer 0's largest weight (a
-    3072x768 MLP weight, 18 chunks)."""
+    """K1 at a main-path shape, the feed of layer 0's largest weight (a
+    3072x768 MLP weight, 18 chunks): the sync decode the ring runs and the
+    serial index pass the feed's build runs, timed in turns (index, sync,
+    sync, index), each beside its plain version; then the sync decode at
+    256, 512 and 1,024 symbols per sub-stream with the index bytes each
+    costs."""
     import torch
 
-    from repro_torch.kernels import huffdecode_chunks, huffdecode_chunks_plain
+    from repro_torch.kernels import (
+        huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index, huffdecode_index_plain,
+    )
+    from repro_torch.kernels.huffdecode import SYNC_EVERY, sync_offsets
 
     layer0 = store.feeds("layers")[0]
     sizes = [int(np.prod(f.shape)) for f in layer0]
     feed = layer0[int(np.argmax(sizes))]
     args = feed.launch_args()
     n_out = args.pop("out_bytes")
-    out = torch.empty(n_out, dtype=torch.uint8, device=dev)
-    run = lambda: huffdecode_chunks(**args, out=out)  # noqa: E731
-    ms = device_ms(run, 5)
-    kernel_ms = profiled_ms(run, r"huffdecode_kernel", 3)
-    out_p = torch.empty(n_out, dtype=torch.uint8, device=dev)
-    plain = []                                  # one untimed-warm call: it takes ~30 s
-    plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(**args, out=out_p)), 1,
-                         warm=False)
+    sync, sync_off = args.pop("sync"), args.pop("sync_off")
+    out, out_i, out_p, out_ip = (torch.zeros(n_out, dtype=torch.uint8, device=dev)
+                                 for _ in range(4))
+    run = lambda: huffdecode_chunks(**args, out=out, sync=sync, sync_off=sync_off)  # noqa: E731
+    index = lambda: huffdecode_index(**args, out=out_i, sync_off=sync_off)  # noqa: E731
+    i_a = device_ms(index, 3)
+    s_a = device_ms(run, 20)
+    s_b = device_ms(run, 20)
+    i_b = device_ms(index, 3)
+    ms, index_ms = (s_a + s_b) / 2, (i_a + i_b) / 2
+    kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 10)
+    index_kernel_ms = profiled_ms(index, r"huffdecode_kernel", 2)
+    plain = []
+    plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(
+        **args, out=out_p, sync=sync, sync_off=sync_off)), 3)
+    plain_index = []                            # one untimed-warm call: it takes ~60 s
+    plain_index_ms = device_ms(lambda: plain_index.append(huffdecode_index_plain(
+        **args, out=out_ip, sync_off=sync_off)), 1, warm=False)
     cur_k = run()
+    cur_i, sync_i = index()
     torch.cuda.synchronize()
+    if not (torch.equal(out, out_p) and torch.equal(out, out_i) and torch.equal(out, out_ip)
+            and torch.equal(cur_k, plain[0]) and torch.equal(cur_k, cur_i)
+            and torch.equal(cur_k, plain_index[0][0]) and torch.equal(sync_i, sync)
+            and torch.equal(plain_index[0][1], sync)):
+        raise AssertionError("K1 kernels and plain versions disagree at the main-path shape")
     symbols = int(args["counts"].sum())
-    syms_equal = all(
-        torch.equal(out[o:o + n], out_p[o:o + n])
-        for o, n in zip(args["out_off"].tolist(), args["counts"].tolist())
-    )
-    if not syms_equal or not torch.equal(cur_k, plain[0]):
-        raise AssertionError("K1 kernel and plain version disagree at the main-path shape")
-    nbytes = sum(t.numel() * t.element_size() for t in args.values()) + symbols + 4 * cur_k.numel()
+    inputs = sum(t.numel() * t.element_size() for t in args.values())
+    sync_bytes = sync.numel() * 4 + sync_off.numel() * 8
+    # each input read once, symbols and cursors written once; the index pass
+    # writes the index where the sync decode reads it
+    nbytes = inputs + sync_bytes + symbols + 4 * cur_k.numel()
     b, by = bound_ms(nbytes, K1_OPS_PER_SYMBOL * symbols)
     log(f"K1 at {tuple(feed.shape)}: {args['counts'].numel()} chunks, {symbols} symbols, "
-        f"{args['words'].numel() * 4} payload bytes; kernel {ms:.4f} ms (device time alone, "
-        f"profiler: {kernel_ms}), plain {plain_ms:.1f} ms, bound {b:.6f} ms ({by})")
-    return ms, plain_ms, b, by, kernel_ms
+        f"{args['words'].numel() * 4} payload bytes, {sync.numel()} sync points every "
+        f"{SYNC_EVERY} symbols ({sync_bytes} B of index); sync decode {ms:.5f} ms ({s_a:.5f} "
+        f"then {s_b:.5f}; device time alone, profiler: {kernel_ms}), plain {plain_ms:.2f} ms; "
+        f"index pass {index_ms:.4f} ms ({i_a:.4f} then {i_b:.4f}; device time alone "
+        f"{index_kernel_ms}), plain {plain_index_ms:.1f} ms; bound {b:.6f} ms ({by}, {nbytes} B)")
+
+    sweep = {}
+    counts_h = args["counts"].cpu().numpy()
+    for every in (256, 512, 1024):
+        off = torch.from_numpy(sync_offsets(counts_h, every)).to(dev)
+        _, idx = huffdecode_index(**args, out=out_i, sync_off=off, sync_every=every)
+        out_s = torch.zeros(n_out, dtype=torch.uint8, device=dev)
+        go = lambda: huffdecode_chunks(  # noqa: E731
+            **args, out=out_s, sync=idx, sync_off=off, sync_every=every)
+        t_ms = device_ms(go, 20)
+        t_kernel = profiled_ms(go, r"huffdecode_sync_kernel", 10)
+        torch.cuda.synchronize()
+        if not (torch.equal(out_s, out) and torch.equal(go(), cur_k)):
+            raise AssertionError(f"K1 sync decode at {every} symbols a sub-stream disagrees")
+        sweep[every] = {"ms": t_ms, "kernel_ms_profiler": t_kernel,
+                        "index_bytes": idx.numel() * 4 + off.numel() * 8}
+    log(f"K1 sync decode by symbols per sub-stream at {tuple(feed.shape)}: {sweep}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "kernel_ms_profiler": kernel_ms, "index_ms": index_ms,
+            "index_plain_ms": plain_index_ms, "index_kernel_ms_profiler": index_kernel_ms,
+            "sweep": sweep}
 
 
 def measure_k2(dev):
@@ -1074,7 +1245,7 @@ def measure_ops(dev):
         nb + -(-nb // BF16_CHUNK) * 256 * 4, HIST_OPS_PER_BYTE * nb, r"hist_kernel")
     row("K9", lambda: K.byte_histogram(exp), lambda: K.byte_histogram_plain(exp),
         nb + 256 * 4, HIST_OPS_PER_BYTE * nb, r"hist_kernel",
-        library=lambda: torch.bincount(exp, minlength=256))
+        library=lambda: torch.bincount(exp, minlength=256), library_name=r"[Hh]istogram")
     c = nb // K8_CHUNK
     # symbols in, words out (raw-size capacity), bit counts, the row ids the
     # wrapper makes, one table
@@ -1095,6 +1266,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import zipnn
     from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.huffdecode import SYNC_EVERY
 
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1111,6 +1283,8 @@ def main() -> int:
     store, params, launches, per_step, n_steps, build_launches, build_plan = phase_main(
         dev, get_config("repro_gpt_100m"), zcfg
     )
+    k1_leaves = check_k1_leaves(store, dev)
+    ring = profile_ring(dev, get_config("repro_gpt_100m"), store)
     k1 = measure_k1(store, dev)
     k2 = measure_k2(dev)
     del store
@@ -1133,8 +1307,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/huffdecode.py:92",
          "launches": launches["huffdecode_chunks"],
          "launches_per_step": per_step["huffdecode_chunks"], "max_abs_err": k1_err,
-         "ms": k1[0], "plain_ms": k1[1], "bound_ms": k1[2], "bound_by": k1[3],
-         "library_ms": None, "library": no_library, "kernel_ms_profiler": k1[4]},
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None, "library": no_library,
+         "kernel_ms_profiler": k1["kernel_ms_profiler"], "sync_every": SYNC_EVERY,
+         "leaves_checked": k1_leaves,
+         # the serial index pass each feed's build runs once (launches per build)
+         "index_pass": {"launches": build_launches["huffdecode_index"],
+                        "ms": k1["index_ms"], "plain_ms": k1["index_plain_ms"],
+                        "kernel_ms_profiler": k1["index_kernel_ms_profiler"]},
+         "sync_every_sweep": k1["sweep"], "ring_trace": ring},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
@@ -1185,6 +1366,7 @@ def main() -> int:
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "library": library or no_library,
             "kernel_ms_profiler": first["kernel_ms_profiler"],
+            "library_kernel_ms_profiler": first["library_kernel_ms_profiler"],
         }
         if len(variants) > 1:
             entry["variants"] = {v: ops_rows[v] for v in variants}

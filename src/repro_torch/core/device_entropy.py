@@ -20,11 +20,19 @@ device and never uploaded.  Envelope: the canonical ``huffman`` coder
 **Decode** (:func:`decode_planes`, :class:`PayloadFeed`): every ``HUFF``
 chunk of a parsed container decodes in one launch of
 :func:`repro_torch.kernels.huffdecode_chunks` — per-chunk LUT row
-selection over stacked canonical tables, one thread per chunk, serial bit
-cursor inside a chunk.  CRC verification, the ``decode_many``-equivalent
-bit-cursor and pad-bit checks, and ``ZERO``/``STORE``/``ZLIB`` chunk
-decode stay on the host; those chunks' bytes ride one side upload (the
-*splice*) and are copied into place on the device.
+selection over stacked canonical tables.  The one-shot
+:func:`decode_planes` runs the serial kernel (one thread per chunk, serial
+bit cursor inside a chunk).  A :class:`PayloadFeed` runs that serial pass
+once, at build, as :func:`~repro_torch.kernels.huffdecode_index`, which
+also records the bit cursor before every
+:data:`~repro_torch.kernels.huffdecode.SYNC_EVERY`-th symbol of each chunk
+(the sync index, kept resident beside the words); every later decode cuts
+each chunk at those cursors into sub-streams that decode in parallel.  The
+blobs are untouched: the index exists only in the feed.  CRC verification,
+the ``decode_many``-equivalent bit-cursor and pad-bit checks, and
+``ZERO``/``STORE``/``ZLIB`` chunk decode stay on the host; those chunks'
+bytes ride one side upload (the *splice*) and are copied into place on the
+device.
 
 The packed words are compact (chunk ``c`` owns
 ``words[word_off[c]:word_off[c+1]]``) and the kernel writes each chunk's
@@ -51,8 +59,8 @@ import numpy as np
 import torch
 
 from .. import _util
-from ..kernels import bitpack_encode_chunks, huffdecode_chunks
-from ..kernels.huffdecode import fuse_lut, pack_words
+from ..kernels import bitpack_encode_chunks, huffdecode_chunks, huffdecode_index
+from ..kernels.huffdecode import fuse_lut, pack_words, sync_offsets
 from . import bitlayout, codec, huffman
 from .device_plane import MAX_BATCH_BYTES
 
@@ -486,6 +494,8 @@ class _ResidentStream:
     ``run()`` allocates the output buffer (every plane back to back),
     copies the splice runs into place and launches K1 over every HUFF
     chunk; it returns the buffer and the cursors (still on the device).
+    K1 decodes serially until :meth:`index` has built the sync index, and
+    from the index after that.
     """
 
     def __init__(self, entries_all, payloads_all, tables_all, chunk_bytes,
@@ -506,11 +516,12 @@ class _ResidentStream:
         self.jobs = _huff_jobs(flat, entries_all, payloads_all, tables_all)
 
         self.words = None
+        self.sync = self.sync_off = None
         self.sizes = np.zeros(0, np.int64)
         if self.jobs:
             huff_planes = sorted({p for (p, _) in self.jobs})
             luts, _ = _stacked_luts([tables_all[p] for p in huff_planes])
-            words, word_off, pids, counts, self.sizes = _pack_words(
+            words, word_off, pids, self.counts_h, self.sizes = _pack_words(
                 self.jobs, entries_all, payloads_all, chunk_bytes,
                 {p: r for r, p in enumerate(huff_planes)},
             )
@@ -518,7 +529,7 @@ class _ResidentStream:
             self.words = _upload(words, device)
             self.word_off = _upload(word_off, device)
             self.pids = _upload(pids, device)
-            self.counts = _upload(counts, device)
+            self.counts = _upload(self.counts_h, device)
             self.out_off = _upload(
                 np.asarray([chunk_off[j] for j in self.jobs], dtype=np.int64), device
             )
@@ -550,23 +561,38 @@ class _ResidentStream:
     @property
     def device_bytes(self) -> int:
         """Every byte this stream keeps on the device: packed words, LUT
-        rows, per-chunk index arrays and the splice."""
+        rows, per-chunk index arrays, the sync index and the splice."""
         resident = [self.splice]
         if self.jobs:
             resident += [self.words, self.word_off, self.pids, self.counts,
-                         self.out_off, self.luts]
+                         self.out_off, self.luts, self.sync, self.sync_off]
         return sum(t.numel() * t.element_size() for t in resident if t is not None)
 
-    def run(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _spliced(self) -> torch.Tensor:
         out = torch.empty(self.total, dtype=torch.uint8, device=self.device)
         for dst, src, n in self.runs:
             out[dst : dst + n].copy_(self.splice[src : src + n])
+        return out
+
+    def _k1_args(self) -> Tuple[torch.Tensor, ...]:
+        return (self.words, self.word_off, self.pids, self.counts, self.out_off, self.luts)
+
+    def run(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        out = self._spliced()
         cursors = None
         if self.jobs:
-            cursors = huffdecode_chunks(
-                self.words, self.word_off, self.pids, self.counts,
-                self.out_off, self.luts, out,
-            )
+            cursors = huffdecode_chunks(*self._k1_args(), out, self.sync, self.sync_off)
+        return out, cursors
+
+    def index(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The serial decode that also builds the sync index, which every
+        later :meth:`run` decodes from; returns what :meth:`run` does."""
+        out = self._spliced()
+        cursors = None
+        if self.jobs:
+            sync_off = _upload(sync_offsets(self.counts_h), self.device)
+            cursors, sync = huffdecode_index(*self._k1_args(), out, sync_off)
+            self.sync, self.sync_off = sync, sync_off
         return out, cursors
 
     def planes(self, out: torch.Tensor) -> List[torch.Tensor]:
@@ -596,8 +622,8 @@ def decode_planes(
 
     Every payload's CRC is verified first (same errors, same order as
     :meth:`~.codec.PlaneCodec.decode_into`), every ``HUFF`` chunk across
-    all planes decodes in one K1 launch, and the cursors are checked as
-    ``huffman.decode_many`` checks them.  Returns per-plane flat uint8
+    all planes decodes in one launch of the serial K1, and the cursors are
+    checked as ``huffman.decode_many`` checks them.  Returns per-plane flat uint8
     tensors on ``device``, byte-identical to
     :func:`.codec.decompress_plane`.
     """
@@ -619,12 +645,16 @@ class PayloadFeed:
 
     * payload CRCs, the HUFF metadata validation and the bit-cursor /
       pad-bit checks run at build time (the payloads are immutable, so one
-      verification covers every later decode; the warmup launch produces
-      the cursors);
-    * the packed words, stacked LUTs, per-chunk metadata and the splice
-      upload once and stay resident on ``device``;
+      verification covers every later decode).  The warmup launch, the
+      serial index pass, produces the cursors and the sync index: the bit
+      cursor before every ``SYNC_EVERY``-th symbol of each chunk, 4 bytes
+      per ``SYNC_EVERY`` symbols, at no extra launch;
+    * the packed words, stacked LUTs, per-chunk metadata, the sync index
+      and the splice stay resident on ``device``;
     * :meth:`decode` re-runs the copies and the K1 launch from those
-      buffers, with no payload-sized host→device transfer.
+      buffers, with no payload-sized host→device transfer.  K1 decodes
+      each chunk as parallel sub-streams that start at the index's
+      cursors.
     """
 
     def __init__(
@@ -641,8 +671,9 @@ class PayloadFeed:
         self._rs = _ResidentStream(
             entries_all, payloads_all, tables_all, params.chunk_bytes, pool, dev
         )
-        # Warmup launch: integrity-checks the cursors once for the feed's life.
-        _, cursors = self._rs.run()
+        # Warmup launch: the index pass, whose cursors are integrity-checked
+        # once for the feed's life.
+        _, cursors = self._rs.index()
         self._rs.check(cursors, payloads_all)
 
     @property
@@ -661,21 +692,21 @@ class PayloadFeed:
     @property
     def device_bytes(self) -> int:
         """Resident device footprint of the feed: payload words, splice,
-        LUT rows and per-chunk index arrays."""
+        LUT rows, per-chunk index arrays and the sync index."""
         return self._rs.device_bytes
 
     def launch_args(self) -> Optional[Dict[str, Any]]:
         """The resident K1 inputs of one decode (None when no chunk is
-        HUFF): ``huffdecode_chunks(**args, out=buffer)`` with a uint8
-        buffer of ``out_bytes`` reproduces the kernel work of
-        :meth:`decode`."""
+        HUFF), the sync index included: ``huffdecode_chunks(**args,
+        out=buffer)`` with a uint8 buffer of ``out_bytes`` (popped from the
+        dict first) reproduces the kernel work of :meth:`decode`."""
         rs = self._rs
         if not rs.jobs:
             return None
         return {
             "words": rs.words, "word_off": rs.word_off, "plane_ids": rs.pids,
             "counts": rs.counts, "out_off": rs.out_off, "luts": rs.luts,
-            "out_bytes": rs.total,
+            "sync": rs.sync, "sync_off": rs.sync_off, "out_bytes": rs.total,
         }
 
     def decode(self) -> List[torch.Tensor]:

@@ -14,20 +14,28 @@
 //
 // What bounds it on the H100: bytes.  Each byte is read twice and written
 // once, with about one integer operation per byte (XOR, and for K10 a
-// per-byte compare and a population count per 32-bit word).  Each thread
-// moves 16 bytes per load and store when all three pointers are 16-byte
-// aligned (the caller checks), in a grid-stride loop whose warps cover
-// contiguous addresses; the ragged end, or a misaligned operand, goes byte
-// by byte.
+// per-byte compare and a population count per 32-bit word).  At the main
+// path's sizes (4.7-9.4 MB an operand) the pass lasts a few microseconds,
+// and how the reads reach device memory sets the time: the writes land in
+// L2.  Each thread moves one 16-byte vector of each operand per step of a
+// grid-stride loop (all three pointers 16-byte aligned, the caller checks),
+// so at any moment the grid reads one contiguous front of each operand.
+// The grid is sized so that each thread takes about VECTORS_PER_THREAD
+// steps, rounded up to whole waves over the SMs: measured on the card
+// (kernels/xor_launch_sweep.py), that beats both one vector per thread over
+// many blocks and several loads in flight per thread, which spread each
+// warp's reads over the operands.  The ragged end, or a misaligned
+// operand, goes byte by byte.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int64_t MAX_BLOCKS = 8192;
+constexpr int VECTORS_PER_THREAD = 8;
+constexpr int MAX_BLOCKS_PER_SM = 16;       // 2,048 threads: a full SM
 
 __device__ __forceinline__ int nonzero_bytes(uint32_t w) {
   return __popc(__vcmpne4(w, 0u)) >> 3;     // __vcmpne4: 0xFF per byte != 0
@@ -86,9 +94,20 @@ extern "C" {
 int xor_delta_launch(const void* a, const void* b, void* d, void* count,
                      long long nbytes, int vec, void* stream) {
   if (nbytes > 0) {
-    const int64_t work = vec ? nbytes / 16 + 16 : nbytes;
-    int64_t blocks = (work + THREADS - 1) / THREADS;
-    if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // about VECTORS_PER_THREAD vectors (or bytes, unaligned) a thread,
+    // rounded up to whole waves over the SMs and capped at one full wave
+    const int64_t per_block = static_cast<int64_t>(THREADS) * VECTORS_PER_THREAD * (vec ? 16 : 1);
+    const int64_t want = (nbytes + per_block - 1) / per_block;
+    int64_t blocks = (want + sms - 1) / sms * sms;
+    if (blocks > static_cast<int64_t>(sms) * MAX_BLOCKS_PER_SM) {
+      blocks = static_cast<int64_t>(sms) * MAX_BLOCKS_PER_SM;
+    }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* pa = static_cast<const uint8_t*>(a);
     const auto* pb = static_cast<const uint8_t*>(b);

@@ -2,7 +2,10 @@
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors, and counts its launches in a ``launches``
-attribute (kernel launches only; plain runs are not counted).
+attribute (kernel launches only; plain runs are not counted).  K1 has
+three launch forms, each counted on its own: ``huffdecode_chunks`` with a
+sync index (the serving ring's decode), ``huffdecode_serial`` and
+``huffdecode_index`` (the index pass).
 :mod:`.ops` is the public face of K4–K6 and K8–K11, the counterpart of the
 reference's ``repro.kernels.ops``.
 """
@@ -33,7 +36,13 @@ from .histogram import (
     chunk_histogram,
     chunk_histogram_plain,
 )
-from .huffdecode import huffdecode_chunks, huffdecode_chunks_plain
+from .huffdecode import (
+    huffdecode_chunks,
+    huffdecode_chunks_plain,
+    huffdecode_index,
+    huffdecode_index_plain,
+    huffdecode_serial,
+)
 from .xor_delta import xor_delta_u32, xor_delta_u32_plain, xor_elems, xor_elems_plain
 
 __all__ = [
@@ -52,6 +61,9 @@ __all__ = [
     "chunk_histogram_plain",
     "huffdecode_chunks",
     "huffdecode_chunks_plain",
+    "huffdecode_index",
+    "huffdecode_index_plain",
+    "huffdecode_serial",
     "plane_consumer",
     "plane_consumer_plain",
     "plane_producer",
@@ -69,7 +81,9 @@ __all__ = [
 ]
 
 KERNELS = {
-    "huffdecode_chunks": huffdecode_chunks,
+    "huffdecode_chunks": huffdecode_chunks,      # the sync decode (the ring's)
+    "huffdecode_serial": huffdecode_serial,
+    "huffdecode_index": huffdecode_index,
     "plane_consumer": plane_consumer,
     "plane_producer": plane_producer,
     "bitpack_encode_chunks": bitpack_encode_chunks,

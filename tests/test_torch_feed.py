@@ -23,6 +23,7 @@ from repro_torch import _util, convert
 from repro_torch.core import (
     bitlayout, codec, container, device_entropy, device_unplane, huffman, zipnn,
 )
+from repro_torch.kernels.huffdecode import SYNC_EVERY
 from repro_torch.serve import CompressedParamStore
 
 HUFF = zipnn.ZipNNConfig(chunk_param_bytes=1 << 11, backend="huffman")
@@ -92,8 +93,8 @@ def test_array_feed_round_trip_with_zero_decode_uploads(dtype):
 def test_feed_holds_compressed_bytes_only():
     """Every resident byte is counted — compact words (each payload padded
     to whole words only, not to the raw chunk capacity), the splice, one
-    int16 LUT row per plane with HUFF chunks, the per-chunk index arrays —
-    and the total stays below the leaf's raw size."""
+    int16 LUT row per plane with HUFF chunks, the per-chunk index arrays,
+    the sync index — and the total stays below the leaf's raw size."""
     leaf = _bf16((512, 512), seed=2)
     ct = zipnn.compress_array(leaf, HUFF)
     feed = zipnn.build_array_feed(ct, HUFF, device="cpu")
@@ -107,7 +108,11 @@ def test_feed_holds_compressed_bytes_only():
     width = max(int(huffman.unpack_table(meta.tables[p]).max()) for p in huff_planes)
     luts = len(huff_planes) * (1 << width) * 2
     index = len(huff) * (8 + 4 + 4 + 8) + 8        # word_off, lut rows, counts, out_off
-    assert feed.device_bytes == words + other + luts + index
+    # the sync index: one int32 cursor per SYNC_EVERY symbols of each HUFF
+    # chunk, and its int64 per-chunk offsets
+    sync = 4 * sum(-(-meta.entries[p][c].raw_len // SYNC_EVERY) for p, c in huff)
+    sync += 8 * (len(huff) + 1)
+    assert feed.device_bytes == words + other + luts + index + sync
     assert feed.device_bytes < leaf.numel() * 2
     args = feed.launch_args()
     assert tuple(args["luts"].shape) == (len(huff_planes), 1 << width)

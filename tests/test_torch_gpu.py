@@ -37,6 +37,9 @@ from repro_torch.kernels import (
     chunk_histogram_plain,
     huffdecode_chunks,
     huffdecode_chunks_plain,
+    huffdecode_index,
+    huffdecode_index_plain,
+    huffdecode_serial,
     launch_counts,
     plane_consumer,
     plane_consumer_plain,
@@ -53,6 +56,7 @@ from repro_torch.kernels import (
     xor_elems_plain,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.huffdecode import fuse_lut, pack_words, sync_offsets, sync_word_cap
 from repro_torch.models import decode_step, init_decode_state
 from repro_torch.models.model import param_shapes
 from repro_torch.serve import CompressedParamStore, make_compressed_serve_step
@@ -77,18 +81,103 @@ def _bf16(shape, seed, device):
 def test_k1_kernel_matches_plain(cuda):
     leaf = _bf16((256, 384), 1, "cpu")
     ct = zipnn.compress_array(leaf, HUFF)
+    reset_launch_counts()
     feed = zipnn.build_array_feed(ct, HUFF, device=cuda)
+    assert launch_counts()["huffdecode_index"] == 1          # the feed's warmup
     args = feed.launch_args()
     n = args.pop("out_bytes")
-    out_k = torch.zeros(n, dtype=torch.uint8, device=cuda)
-    out_p = torch.zeros(n, dtype=torch.uint8, device=cuda)
+    out_k, out_p, out_s = (torch.zeros(n, dtype=torch.uint8, device=cuda) for _ in range(3))
     reset_launch_counts()
-    cur_k = huffdecode_chunks(**args, out=out_k)
+    cur_k = huffdecode_chunks(**args, out=out_k)             # the sync decode
     cur_p = huffdecode_chunks_plain(**args, out=out_p)
+    sync, sync_off = args.pop("sync"), args.pop("sync_off")
+    cur_s = huffdecode_serial(**args, out=out_s)
     torch.cuda.synchronize()
     assert launch_counts()["huffdecode_chunks"] == 1
+    assert launch_counts()["huffdecode_serial"] == 1
     assert torch.equal(cur_k, cur_p) and torch.equal(out_k, out_p)
+    assert torch.equal(cur_k, cur_s) and torch.equal(out_k, out_s)
+    cur_i, sync_i = huffdecode_index(**args, out=out_s, sync_off=sync_off)
+    cur_ip, sync_ip = huffdecode_index_plain(**args, out=out_p, sync_off=sync_off)
+    assert torch.equal(sync_i, sync) and torch.equal(sync_ip, sync)
+    assert torch.equal(cur_i, cur_k) and torch.equal(cur_ip, cur_k)
     assert torch.equal(feed.decode().cpu().view(torch.int16), leaf.view(torch.int16))
+
+
+def _k1_case(chunk, n_chunks, seed, pad, top=0.05):
+    """K1 inputs over two tables at ``chunk`` symbols a chunk: a plane of
+    ``n_chunks`` chunks (a short final one) whose 16 most frequent bytes
+    each have probability ``top``, and a 1-symbol chunk;
+    each chunk's output starts ``pad`` bytes after the previous one ends,
+    so its sub-streams start off 16-byte boundaries.  Also returns every
+    symbol's code length (``bits``)."""
+    rng = np.random.default_rng(seed)
+    p = np.r_[np.full(16, top), np.full(240, (1 - 16 * top) / 240)]
+    plane = rng.choice(256, p=p, size=(n_chunks - 1) * chunk + chunk // 3).astype(np.uint8)
+    small = (np.arange(chunk) % 7).astype(np.uint8)
+    tables, payloads, counts, pids, syms, bits = [], [], [], [], [], []
+    for pid, sample in enumerate((plane, small)):
+        lens = huffman.code_lengths(np.bincount(sample, minlength=256) + 1)
+        codes = huffman.canonical_codes(lens)
+        tables.append((lens, codes))
+        cnt = [min(chunk, sample.size - o) for o in range(0, sample.size, chunk)]
+        if pid == 1:
+            cnt, sample = [1], sample[:1]
+        payloads += huffman.encode_chunks(sample, np.asarray(cnt), lens, codes)
+        counts += cnt
+        pids += [pid] * len(cnt)
+        syms.append(sample)
+        bits.append(lens[sample].astype(np.int64))
+    width = max(int(t[0].max()) for t in tables)
+    luts = np.stack([fuse_lut(*huffman._build_lut(l, c, width)) for l, c in tables])
+    words, word_off = pack_words(payloads)
+    out_off = np.cumsum([0] + [c + pad for c in counts[:-1]]).astype(np.int64) + pad
+    return words, word_off, np.asarray(pids, np.int32), np.asarray(counts, np.int32), \
+        out_off, luts, np.concatenate(syms), np.concatenate(bits), payloads
+
+
+@pytest.mark.parametrize("chunk, pad, top", [
+    (1 << 17, 0, 0.05), (1 << 17, 3, 0.05), (1 << 18, 5, 0.02)])
+@pytest.mark.parametrize("sync_every", [512, 300])
+def test_k1_sync_decode_staged_and_global_words(cuda, chunk, pad, top, sync_every):
+    """The sync decode against its plain version and the serial kernel, with
+    every chunk's words staged in shared memory (131,072-symbol chunks of a
+    ~5.5-bit plane) and with the big chunks' words read from global memory
+    (262,144 symbols of a ~7.6-bit plane, ~250 KB, do not fit in a block's
+    227 KB)."""
+    words, word_off, pids, counts, out_off, luts, syms, bits, payloads = _k1_case(
+        chunk, 3, chunk + pad, pad, top)
+    cap = sync_word_cap(luts.shape[1].bit_length() - 1, cuda)
+    staged = [len(p) <= 4 * cap for p in payloads]
+    assert all(staged) if chunk == 1 << 17 else not all(staged)
+    args = [torch.from_numpy(a).to(cuda) for a in (words, word_off, pids, counts, out_off, luts)]
+    sync_off = torch.from_numpy(sync_offsets(counts, sync_every)).to(cuda)
+    n = int(out_off[-1] + counts[-1])
+    out_i, out_k, out_p, out_s = (torch.zeros(n, dtype=torch.uint8, device=cuda)
+                                  for _ in range(4))
+    reset_launch_counts()
+    cur_i, sync = huffdecode_index(*args, out_i, sync_off, sync_every)
+    # the index: code lengths summed over each chunk's symbols before every
+    # sync point (the plain index pass walks every symbol serially, too slow
+    # at these sizes; chip_smoke.py holds it against the kernel)
+    want, start = [], 0
+    for c in counts:
+        want.append(np.cumsum(np.r_[0, bits[start : start + c]])[0:c:sync_every])
+        start += c
+    assert np.array_equal(sync.cpu().numpy(), np.concatenate(want))
+    cur_k = huffdecode_chunks(*args, out_k, sync, sync_off, sync_every)
+    cur_p = huffdecode_chunks_plain(*args, out_p, sync, sync_off, sync_every)
+    cur_s = huffdecode_serial(*args, out_s)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if k.startswith("huff")} == {
+        "huffdecode_chunks": 1, "huffdecode_serial": 1, "huffdecode_index": 1}
+    for out in (out_i, out_p, out_s):
+        assert torch.equal(out_k, out)
+    for cur in (cur_i, cur_p, cur_s):
+        assert torch.equal(cur_k, cur)
+    got = np.concatenate([out_k[o : o + c].cpu().numpy() for o, c in zip(out_off, counts)])
+    assert np.array_equal(got, syms)
+    assert all(0 <= len(p) * 8 - c < 8 for p, c in zip(payloads, cur_k.tolist()))
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -145,6 +234,8 @@ def test_corrupt_payload_raises_on_card(cuda):
     params = codec.CodecParams(chunk_bytes=meta.chunk_bytes, backend="huffman")
     with pytest.raises(ValueError, match="cursor|pad"):
         device_entropy.decode_planes(entries, payloads, meta.tables, params, device=cuda)
+    with pytest.raises(ValueError, match="cursor|pad"):               # at the index pass
+        device_entropy.PayloadFeed(entries, payloads, meta.tables, params, device=cuda)
 
 
 def test_ring_bit_identical_on_card(cuda):
@@ -169,8 +260,11 @@ def test_ring_bit_identical_on_card(cuda):
         la, sa = decode_step(cfg, params, sa, toks)
         lb, sb = cstep(sb, toks)
         assert torch.equal(la.view(torch.int32), lb.view(torch.int32)), t
-    assert launch_counts()["huffdecode_chunks"] > 0
-    assert launch_counts()["plane_consumer"] == 4 * sum(len(l) for l in store.feeds("layers"))
+    n_feeds = sum(len(l) for l in store.feeds("layers"))
+    assert launch_counts()["huffdecode_chunks"] == 4 * sum(
+        f.n_launches["huffdecode_chunks"] for l in store.feeds("layers") for f in l) > 0
+    assert launch_counts()["huffdecode_serial"] == launch_counts()["huffdecode_index"] == 0
+    assert launch_counts()["plane_consumer"] == 4 * n_feeds
     assert device_entropy.transfer_stats()["payload_uploads"] == 0
     assert store.peak_resident <= 2
 
@@ -299,8 +393,11 @@ def test_k4_k11_kernels_match_plain(cuda, itemsize, n, offset):
     assert counts[group.__name__] == 1 and counts[ungroup.__name__] == 1
 
 
+# K5/K10: 3072 * 768 is the main path's leaf (a partial group of 4 vectors
+# a thread); 3,000,017 a ragged end; 9,000,001 u32 elements take more than
+# one pass of the grid-stride loop.
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("n", [1, 100_003, 1 << 20])
+@pytest.mark.parametrize("n", [1, 100_003, 1 << 20, 3072 * 768, 3_000_017, 9_000_001])
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_k5_k10_kernels_match_plain(cuda, itemsize, n, offset):
     a = _card_bits(n, itemsize, n, cuda, offset)
