@@ -18,7 +18,10 @@ without printing the final line:
    variants with their histograms, at the same size; K7 (Huffman
    bit-pack) on the exponent and mantissa planes of a 3072x768 bf16 leaf
    at 131,072-symbol chunks under three tables, plus a chunk that expands
-   past its capacity and a zero-padded partial final chunk;
+   past its capacity and a zero-padded partial final chunk; then K7 and K8
+   under ``torch.cuda.set_sync_debug_mode("error")`` (their CUDA path reads
+   nothing back to the host), K7 with a bad plane id and a length-16 row
+   that it must flag with ``nbits = -1``;
 4. the port's CUDA decode step against its CPU run on the reduced config
    (a small-input reference, within a stated bf16 tolerance);
 5. the main path: repro_gpt_100m at full width (12 layers, d_model 768,
@@ -63,8 +66,9 @@ without printing the final line:
     launch with L2 evicted before it (``device_ms``) and the device time
     alone from ``torch.profiler`` (``profiled_ms``), for K1 (the sync
     decode and the index pass in turns, and the sync decode at 256, 512 and
-    1,024 symbols a sub-stream), K2, K3 and K7 at the main path's shapes and
-    the ops kernels at the 3072x768 leaf, beside their plain versions and
+    1,024 symbols a sub-stream), K2, K3 (at the leaf and at a layer's batch
+    as the store build launches it) and K7 at the main path's shapes and the
+    ops kernels at the 3072x768 leaf, beside their plain versions and
     ``torch.bitwise_xor`` (K5) and ``torch.bincount`` (K9);
 11. report: store sizes, build times, tokens/s, the ``kernels`` JSON line,
     and last ``{"ok": true, "device": {...}}``.
@@ -431,6 +435,58 @@ def phase_k7(dev):
         f"(bits of the expanding chunk {int(nk[2 * n_exp])} > capacity {8 * BF16_CHUNK}; "
         f"partial chunk {int(nk[-1])} bits), words and bit counts equal")
     return max(max_abs_diff(wk, wp), max_abs_diff(nk, np_))
+
+
+def phase_k7_sync_free(dev):
+    """K7 and K8 on the card read nothing back to the host: both wrappers
+    run with ``torch.cuda.set_sync_debug_mode("error")``, which raises at a
+    synchronising call.  The same K7 call carries a chunk whose plane id
+    names no row and one whose row holds a length-16 code: the kernel flags
+    both (``nbits = -1``), and the rest equal the plain version."""
+    import torch
+
+    from repro_torch.kernels import (
+        bitpack_encode_chunks, bitpack_encode_chunks_plain, bitpack_encode_chunks_single,
+        bitpack_encode_chunks_single_plain,
+    )
+
+    (syms, _, lens, codes), n_exp = k7_inputs(dev)
+    bad_lens = torch.cat([lens, lens[:1].clone()])
+    bad_lens[-1, int(torch.argmax(bad_lens[-1]))] = 16
+    bad_codes = torch.cat([codes, codes[:1]])
+    head = syms[: 2 * BF16_CHUNK]
+    k7_syms = torch.cat([head, head])
+    k7_pids = torch.tensor([0, 1, 99, bad_lens.shape[0] - 1], dtype=torch.int32, device=dev)
+    exp = syms[: n_exp * BF16_CHUNK]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # control: reading the table's extremes on the host, as a check of
+        # its lengths there would, raises in this mode
+        try:
+            int(lens.max())
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("the sync debug mode did not catch a device-to-host read")
+        wk, nk = bitpack_encode_chunks(k7_syms, k7_pids, bad_lens, bad_codes,
+                                       chunk_syms=BF16_CHUNK)
+        w8, n8 = bitpack_encode_chunks_single(exp, lens[0], codes[0], chunk_syms=K8_CHUNK)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    wp, np_ = bitpack_encode_chunks_plain(head, k7_pids[:2].clone(), lens, codes,
+                                          chunk_syms=BF16_CHUNK)
+    w8p, n8p = bitpack_encode_chunks_single_plain(exp, lens[0], codes[0], chunk_syms=K8_CHUNK)
+    torch.cuda.synchronize()
+    if nk[2:].tolist() != [-1, -1] or wk[2:].any():
+        raise AssertionError(
+            f"K7 did not flag the bad plane id and the length-16 row: {nk.tolist()}")
+    if not (torch.equal(nk[:2], np_) and torch.equal(wk[:2], wp)
+            and torch.equal(n8, n8p) and torch.equal(w8, w8p)):
+        raise AssertionError("K7/K8 under the sync debug mode disagree with their plain versions")
+    log(f"K7 and K8 wrappers ran with torch.cuda.set_sync_debug_mode('error'): no host round "
+        f"trip; K7 flagged a bad plane id and a length-16 row (nbits {nk.tolist()}), K8 "
+        f"{n8.numel()} chunks equal")
 
 
 def phase_small_reference(dev):
@@ -1130,30 +1186,67 @@ def measure_k2(dev):
     return ms, plain_ms, b, by, kernel_ms
 
 
-def measure_k3(dev):
-    """K3 in all four variants at a 3072x768 leaf's size; the bf16 variant
-    without a base is the one the main path's store build runs."""
+def layer0_params(dev, seed=SEED):
+    """Layer 0's weights alone (stacks one layer deep), made as
+    :func:`random_params` makes the model's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import param_shapes
+
+    def one(d):
+        return {k: one(v) for k, v in d.items()} if isinstance(d, dict) else (1, *d[1:])
+
+    shapes = one(param_shapes(get_config("repro_gpt_100m"))["layers"])
+    return {"layers": random_params(shapes, np.random.default_rng(seed), dev)}
+
+
+def layer_batch(params):
+    """Layer 0's bf16 leaves as ``core.device_plane.produce_planes_batched``
+    hands them to K3 in the store build: each leaf's element bits padded
+    with zeros to whole 131,072-element chunks, back to back."""
+    import torch
+
+    from repro_torch import _util
+
+    parts = []
+    for stack in _util.tree_leaves(params["layers"]):
+        x = stack[0].reshape(-1).view(torch.int16)
+        parts += [x, x.new_zeros(-x.numel() % BF16_CHUNK)]
+    return torch.cat(parts)
+
+
+def measure_k3(dev, params):
+    """K3 in all four variants at a 3072x768 leaf's size, then the bf16
+    variant without a base (the one the main path's store build runs) at a
+    layer's batch, the shape it is launched at there."""
+    import torch
+
     from repro_torch.kernels import plane_producer, plane_producer_plain
 
+    cases = [(f"{'bf16' if itemsize == 2 else 'fp32'}{'+base' if with_base else ''}",
+              *k3_inputs(dev, itemsize, with_base, SEED + 11), itemsize)
+             for itemsize in (2, 4) for with_base in (False, True)]
+    cases.append(("bf16 layer batch", layer_batch(params), None, BF16_CHUNK, 2))
     out = {}
-    for itemsize in (2, 4):
-        for with_base in (False, True):
-            x, base, chunk = k3_inputs(dev, itemsize, with_base, SEED + 11)
-            def run(x=x, base=base, chunk=chunk, itemsize=itemsize):
-                return plane_producer(x, base, itemsize=itemsize, chunk_elems=chunk)
+    for key, x, base, chunk, itemsize in cases:
+        def run(x=x, base=base, chunk=chunk, itemsize=itemsize):
+            return plane_producer(x, base, itemsize=itemsize, chunk_elems=chunk)
 
-            ms = device_ms(run, 50)
-            kernel_ms = profiled_ms(run, r"(?<!un)plane_kernel", 20)
-            plain_ms = device_ms(
-                lambda: plane_producer_plain(x, base, itemsize=itemsize, chunk_elems=chunk), 5)
-            n = x.numel()
-            nbytes = n * itemsize * (3 if with_base else 2) + (n // chunk) * itemsize * 256 * 4
-            b, by = bound_ms(nbytes, K3_OPS_PER_ELEMENT[itemsize] * n)
-            key = f"{'bf16' if itemsize == 2 else 'fp32'}{'+base' if with_base else ''}"
-            out[key] = (ms, plain_ms, b, by, kernel_ms)
-            log(f"K3 {key} at n={n} (chunks of {chunk}): kernel {ms:.5f} ms (device time "
-                f"alone, profiler: {kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms "
-                f"({by}, {nbytes} B)")
+        ms = device_ms(run, 50)
+        kernel_ms = profiled_ms(run, r"(?<!un)plane_kernel", 20)
+        plain_ms = device_ms(
+            lambda: plane_producer_plain(x, base, itemsize=itemsize, chunk_elems=chunk), 5)
+        pk, hk = run()
+        pp, hp = plane_producer_plain(x, base, itemsize=itemsize, chunk_elems=chunk)
+        if not (torch.equal(pk, pp) and torch.equal(hk, hp)):
+            raise AssertionError(f"K3 {key} disagrees with its plain version")
+        n = x.numel()
+        nbytes = n * itemsize * (3 if base is not None else 2) + (n // chunk) * itemsize * 256 * 4
+        b, by = bound_ms(nbytes, K3_OPS_PER_ELEMENT[itemsize] * n)
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                    "kernel_ms_profiler": kernel_ms, "n": n, "bytes": nbytes}
+        log(f"K3 {key} at n={n} (chunks of {chunk}): kernel {ms:.5f} ms (device time "
+            f"alone, profiler: {kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms "
+            f"({by}, {nbytes} B)")
     return out
 
 
@@ -1164,6 +1257,7 @@ def measure_k7(dev):
     import torch
 
     from repro_torch.kernels import bitpack_encode_chunks, bitpack_encode_chunks_plain
+    from repro_torch.kernels.bitpack import segments
 
     (syms, pids, lens, codes), n_exp = k7_inputs(dev)
     syms = syms[: n_exp * BF16_CHUNK].contiguous()
@@ -1179,9 +1273,9 @@ def measure_k7(dev):
     n = syms.numel()
     nbytes = n + words.numel() * 4 + 4 * nbits.numel() + 4 * pids.numel() + 2 * 4 * 256
     b, by = bound_ms(nbytes, K7_OPS_PER_SYMBOL * n)
-    log(f"K7 at {n_exp} chunks of {BF16_CHUNK} exponent symbols ({int(nbits.sum())} bits): "
-        f"kernel {ms:.5f} ms (device time alone, profiler: {kernel_ms}), plain "
-        f"{plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    log(f"K7 at {n_exp} chunks of {BF16_CHUNK} exponent symbols ({int(nbits.sum())} bits, "
+        f"{n_exp * segments(BF16_CHUNK)} blocks): kernel {ms:.5f} ms (device time alone, "
+        f"profiler: {kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
     return ms, plain_ms, b, by, kernel_ms
 
 
@@ -1278,6 +1372,7 @@ def main() -> int:
     k2_err = phase_k2(dev)
     k3_err = phase_k3(dev)
     k7_err = phase_k7(dev)
+    phase_k7_sync_free(dev)
     phase_small_reference(dev)
     zcfg = zipnn.ZipNNConfig(backend="huffman")
     store, params, launches, per_step, n_steps, build_launches, build_plan = phase_main(
@@ -1293,7 +1388,8 @@ def main() -> int:
     ops_launches = phase_ops_path(dev, get_config("repro_gpt_100m"), params, news)
     del news
     phase_fp32(dev, zcfg, params)
-    k3 = measure_k3(dev)["bf16"]
+    k3_rows = measure_k3(dev, params)
+    k3 = k3_rows["bf16"]
     k7 = measure_k7(dev)
     ops_rows = measure_ops(dev)
     reset_launch_counts()
@@ -1328,8 +1424,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused_plane.py:52",
          "launches": build_launches["plane_producer"],
          "launches_per_build": build_plan["plane_producer"], "max_abs_err": k3_err,
-         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[2], "bound_by": k3[3],
-         "library_ms": None, "library": no_library, "kernel_ms_profiler": k3[4]},
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None, "library": no_library,
+         "kernel_ms_profiler": k3["kernel_ms_profiler"], "variants": k3_rows},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",

@@ -60,6 +60,7 @@ import torch
 
 from .. import _util
 from ..kernels import bitpack_encode_chunks, huffdecode_chunks, huffdecode_index
+from ..kernels.bitpack import MAXL
 from ..kernels.huffdecode import fuse_lut, pack_words, sync_offsets
 from . import bitlayout, codec, huffman
 from .device_plane import MAX_BATCH_BYTES
@@ -206,6 +207,12 @@ def _pack_jobs(
     # the launch on the current stream.
     words_h = words.cpu().numpy().view(np.uint32)
     nbits_h = nbits.cpu().numpy()
+    if (nbits_h < -1).any():
+        raise RuntimeError("bitpack: K7 could not place a chunk's segments")
+    if (nbits_h == -1).any():
+        # K7 flags a chunk whose table row holds a length outside 0..MAXL
+        bad = sorted({int(p) for p in pids[nbits_h == -1]})
+        raise ValueError(f"bitpack: code lengths of planes {bad} must lie in 0..{MAXL}")
     # Bit j of a chunk is word bit 31 - (j & 31): the words' big-endian
     # bytes are exactly the np.packbits stream the host encoder emits.
     stream = words_h.byteswap().view(np.uint8).reshape(-1)

@@ -25,6 +25,15 @@ keeps only its first ``chunk_syms / 4`` words but reports its full bit
 count: the host stores such a chunk raw.  Both equal, bit for bit, what
 the reference's ``bitpack_encode_chunks_multi`` returns.
 
+On a card one call runs one CUDA kernel, a thread block for each segment
+of :data:`SEGMENT_SYMS` symbols of a chunk.  It reads nothing back to the
+host: the kernel checks the table on the card, and a chunk whose plane id
+names no row, or whose row holds a length outside 0..15, comes back with
+``nbits = -1`` (its words zero); the callers raise ``ValueError`` for it.
+``nbits = -2`` marks a chunk whose segments could not be placed (the
+kernel's safety net against a stalled look-back; it does not occur).  The
+plain version checks the lengths itself and raises ``ValueError``.
+
 Kernel K8, :func:`bitpack_encode_chunks_single`, is the same kernel
 launched with one table for every chunk, the counterpart of the
 reference's single-table ``bitpack_encode_chunks``; it counts its own
@@ -43,13 +52,16 @@ from . import _build
 
 __all__ = [
     "MAXL",
+    "SEGMENT_SYMS",
     "bitpack_encode_chunks",
     "bitpack_encode_chunks_plain",
     "bitpack_encode_chunks_single",
     "bitpack_encode_chunks_single_plain",
+    "segments",
 ]
 
 MAXL = 15                      # the encoder's length-limited code lengths
+SEGMENT_SYMS = 8192            # symbols a thread block packs (SEG in csrc/bitpack.cu)
 
 
 def _check_args(syms, plane_ids, len_tables, code_tables, chunk_syms) -> int:
@@ -77,20 +89,31 @@ def _check_args(syms, plane_ids, len_tables, code_tables, chunk_syms) -> int:
         raise ValueError(f"bitpack: {plane_ids.numel()} plane ids for {c} chunks")
     if len_tables.shape != code_tables.shape or len_tables.shape[1:] != (256,):
         raise ValueError("bitpack: tables must both be (P, 256)")
+    return c
+
+
+def _check_lengths(len_tables) -> None:
+    """The plain version's table check.  It reads the table's extremes, so
+    on a card it waits for the device; the kernel checks on the card
+    instead and flags the chunk (``nbits = -1``)."""
     if len_tables.numel() and not 0 <= int(len_tables.min()) <= int(len_tables.max()) <= MAXL:
         raise ValueError(f"bitpack: code lengths must lie in 0..{MAXL}")
-    return c
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("bitpack").bitpack_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+def segments(chunk_syms: int) -> int:
+    """Thread blocks (segments of :data:`SEGMENT_SYMS` symbols) per chunk."""
+    return -(-chunk_syms // SEGMENT_SYMS)
 
 
 def bitpack_encode_chunks(
@@ -125,10 +148,13 @@ def _launch(fn, c, syms, plane_ids, len_tables, code_tables, chunk_syms):
     nbits = torch.empty(c, dtype=torch.int32, device=dev)
     if c == 0:
         return words, nbits
+    # each segment's published bit count, and the ticket counter last
+    status = torch.zeros(c * segments(chunk_syms) + 1, dtype=torch.int64, device=dev)
     rc = _launcher()(
         syms.data_ptr(), plane_ids.data_ptr(), len_tables.data_ptr(),
-        code_tables.data_ptr(), len_tables.shape[0], words.data_ptr(),
-        nbits.data_ptr(), c, chunk_syms, torch.cuda.current_stream(dev).cuda_stream,
+        code_tables.data_ptr(), len_tables.shape[0], status.data_ptr(),
+        words.data_ptr(), nbits.data_ptr(), c, chunk_syms,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("bitpack", rc, f"{fn.__name__} launch")
     fn.launches += 1
@@ -147,6 +173,7 @@ def bitpack_encode_chunks_plain(
     places every code, and each code is added (its bits overlap no other
     code's, so adding is OR) into the one or two words it spans."""
     c = _check_args(syms, plane_ids, len_tables, code_tables, chunk_syms)
+    _check_lengths(len_tables)
     dev = syms.device
     cap = chunk_syms // 4
     s = syms.view(c, chunk_syms).to(torch.int64)

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -39,8 +38,6 @@ ELEM_DTYPES = {2: torch.int16, 4: torch.int32}
 # the reference's histogram block, HIST_ROWS * 128 in
 # src/repro/kernels/histogram.py.  The kernel itself takes any chunk size.
 CHUNK_ALIGN_BYTES = 128 * 128
-# Elements per thread block; a block's tile must lie inside one chunk.
-_TILE = 4096
 
 
 def _check_args(x, base, itemsize, chunk_elems) -> int:
@@ -71,7 +68,7 @@ def _launcher():
     fn = _build.load("plane").plane_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 4
-        + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -98,8 +95,7 @@ def plane_producer(
         return planes, hists
     rc = _launcher()(
         x.data_ptr(), None if base is None else base.data_ptr(),
-        planes.data_ptr(), hists.data_ptr(), n, chunk_elems,
-        math.gcd(chunk_elems, _TILE), itemsize,
+        planes.data_ptr(), hists.data_ptr(), n, chunk_elems, 0, itemsize,   # 0: tiles fill a wave
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("plane", rc, "plane_producer launch")

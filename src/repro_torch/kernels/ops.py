@@ -122,6 +122,9 @@ def huffman_encode_chunks(
     if n == 0:
         return []
     lens_np, codes_np = _host_table(lens), _host_table(codes)
+    if lens_np.size and not 0 <= lens_np.min() <= lens_np.max() <= bitpack.MAXL:
+        # checked here, on the host copy: the kernel's own check reads nothing back
+        raise ValueError(f"bitpack: code lengths must lie in 0..{bitpack.MAXL}")
     n_chunks = -(-n // chunk_syms)
     padded = s
     if n % chunk_syms or s.data_ptr() % 4:
@@ -132,11 +135,13 @@ def huffman_encode_chunks(
         padded[:n] = s
     lens_t = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
     codes_t = torch.from_numpy(codes_np.astype(np.int32)).to(dev)
-    words, _ = bitpack.bitpack_encode_chunks_single(
+    words, nbits = bitpack.bitpack_encode_chunks_single(
         padded, lens_t, codes_t, chunk_syms=chunk_syms
     )
     bits = torch.zeros(n_chunks * chunk_syms, dtype=torch.int64, device=dev)
     bits[:n] = lens_t.to(torch.int64)[s.to(torch.int64)]
     true_bits = bits.view(n_chunks, chunk_syms).sum(dim=1).cpu().tolist()
+    if int(nbits.min()) < 0:                   # the table passed the check above
+        raise RuntimeError("bitpack: K8 could not place a chunk's segments")
     raw = words.cpu().numpy().view(np.uint32).astype(">u4")
     return [raw[c].tobytes()[: -(-tb // 8)] for c, tb in enumerate(true_bits)]

@@ -269,7 +269,7 @@ def test_ring_bit_identical_on_card(cuda):
     assert store.peak_resident <= 2
 
 
-@pytest.mark.parametrize("chunk", [16384, 3000])     # 3000: blocks of gcd(3000, 4096) = 8
+@pytest.mark.parametrize("chunk", [16384, 3000])     # 3000: tiles end off 16-byte lines
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("with_base", [False, True])
 def test_k3_kernel_matches_plain(cuda, itemsize, with_base, chunk):
@@ -467,3 +467,159 @@ def test_ops_on_card_match_ops_on_cpu(cuda):
     assert launch_counts()["bitpack_encode_chunks_single"] == 1
     assert on_card == ops.huffman_encode_chunks(cexp.numpy(), lens, codes, device="cpu")
     assert on_card == ops.huffman_encode_chunks(exp, lens, codes)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned K7 (segments of 8,192 symbols over many blocks, placed by a
+# look-back, the table checked on the card) and K3 (16-byte traffic,
+# per-warp histograms, tiles sized to one wave)
+# ---------------------------------------------------------------------------
+
+def _k7_tables_and_syms(chunk, seed):
+    """Five table rows and eight chunks: skewed chunks under row 0, a
+    7-symbol row (1), all length-1 codes (2), all length-15 codes that
+    expand past capacity (3), a row with one length-16 code (4), and a
+    chunk whose plane id (7) names no row."""
+    rng = np.random.default_rng(seed)
+    skewed = np.clip(rng.normal(120, 3, 3 * chunk), 0, 255).astype(np.uint8)
+    rows = []
+    for sample in (skewed, (np.arange(5000) % 7).astype(np.uint8)):
+        lens = huffman.code_lengths(np.bincount(sample, minlength=256) + 1)
+        rows.append((lens, huffman.canonical_codes(lens)))
+    ones = np.zeros(256, np.int64)
+    ones[[3, 200]] = 1
+    rows.append((ones, huffman.canonical_codes(ones)))
+    rows.append((np.full(256, 15, np.int64), np.arange(256, dtype=np.int64) * 37 % (1 << 15)))
+    rows.append((np.where(np.arange(256) == 5, 16, rows[0][0]), rows[0][1]))
+    tail = skewed[2 * chunk :].copy()
+    tail[chunk - 1000 :] = 0                                # zero-padded final chunk
+    syms = np.concatenate([
+        skewed[: 2 * chunk], rng.integers(0, 256, chunk).astype(np.uint8), tail,
+        rng.choice([3, 200], chunk).astype(np.uint8), rng.integers(0, 256, chunk).astype(np.uint8),
+        skewed[:chunk], skewed[chunk : 2 * chunk],
+    ])
+    pids = np.asarray([0, 0, 1, 0, 2, 3, 4, 7], np.int32)
+    lens = np.stack([r[0] for r in rows]).astype(np.int32)
+    codes = np.stack([r[1] for r in rows]).astype(np.int32)
+    return syms, pids, lens, codes
+
+
+# 6,004 and 262,144: segments end off word boundaries and a chunk is not a
+# whole number of segments, or is 32 of them
+@pytest.mark.parametrize("chunk", [6004, 8192, 131_072, 262_144])
+def test_k7_segments_match_plain(cuda, chunk):
+    syms, pids, lens, codes = _k7_tables_and_syms(chunk, chunk % 97)
+    args = [torch.from_numpy(a).to(cuda) for a in (syms, pids, lens, codes)]
+    reset_launch_counts()
+    wk, nk = bitpack_encode_chunks(*args, chunk_syms=chunk)
+    good = torch.arange(6, device=cuda)                  # the plain version raises on row 4
+    wp, np_ = bitpack_encode_chunks_plain(
+        args[0].view(-1, chunk)[good].reshape(-1), args[1][good], args[2][:4].contiguous(),
+        args[3][:4].contiguous(), chunk_syms=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["bitpack_encode_chunks"] == 1
+    assert nk[6:].tolist() == [-1, -1] and not wk[6:].any()
+    assert int(nk[4]) == chunk                           # one bit a symbol
+    assert int(nk[2]) > 8 * chunk and int(nk[5]) == 15 * chunk     # expanded past capacity
+    assert torch.equal(nk[:6], np_) and torch.equal(wk[:6], wp)
+
+
+@pytest.mark.parametrize("single", [False, True])
+def test_k7_k8_wrappers_do_not_sync(cuda, single):
+    """The CUDA path reads nothing back to the host: with the sync debug
+    mode at "error" a synchronising call would raise."""
+    syms, pids, lens, codes = _k7_tables_and_syms(8192, 1)
+    s, p, l, c = (torch.from_numpy(a).to(cuda) for a in (syms, pids, lens, codes))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):              # control: a host read is caught
+            int(l.max())
+        if single:
+            words, nbits = bitpack_encode_chunks_single(s, l[0], c[0], chunk_syms=8192)
+        else:
+            words, nbits = bitpack_encode_chunks(s, p, l, c, chunk_syms=8192)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if single:
+        assert torch.equal(nbits, bitpack_encode_chunks_single_plain(
+            s, l[0], c[0], chunk_syms=8192)[1])
+    else:
+        assert nbits[6:].tolist() == [-1, -1]
+
+
+def test_bad_table_raises_on_card(cuda):
+    """A length-16 table: K7 flags it on the card and both callers raise."""
+    syms, _, lens, codes = _k7_tables_and_syms(8192, 2)
+    plane = syms[: 2 * 8192]
+    with pytest.raises(ValueError, match="0..15"):
+        device_entropy._pack_jobs([plane], [(0, 0, 8192), (0, 1, 8192)], lens[4:5].copy(),
+                                  codes[4:5].copy(), 8192, cuda)
+    with pytest.raises(ValueError, match="0..15"):
+        ops.huffman_encode_chunks(plane, lens[4], codes[4], chunk_syms=8192, device=cuda)
+
+
+def _k3_case(kind, itemsize, n, seed):
+    dt = torch.int16 if itemsize == 2 else torch.int32
+    g = torch.Generator().manual_seed(seed)
+    if kind == "random_bits":
+        return torch.randint(torch.iinfo(dt).min, torch.iinfo(dt).max, (n,), dtype=dt, generator=g)
+    w = torch.randn(n, generator=g) * 0.02
+    x = (w.to(torch.bfloat16) if itemsize == 2 else w).view(dt)
+    if kind == "same_exponent":                  # one exponent byte after the rotate
+        keep = 0x007F if itemsize == 2 else 0x007FFFFF
+        x = (x & keep) | (0x3C00 if itemsize == 2 else 0x3C000000)
+    return x
+
+
+# offset_view: a view that starts one element in; odd_n: n not a multiple
+# of 8 (planes 1.. start off 8-byte lines); same_exponent: every exponent
+# byte one value; random_bits: uniform bits in every plane
+@pytest.mark.parametrize("kind", ["offset_view", "odd_n", "same_exponent", "random_bits"])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_k3_vectors_and_histograms_match_plain(cuda, kind, itemsize, with_base):
+    chunk = 131_072 // itemsize if kind != "odd_n" else 50_001
+    n = 3 * chunk
+    x = _k3_case(kind, itemsize, n + 1, itemsize + 3 * with_base).to(cuda)
+    x = x[1:] if kind == "offset_view" else x[:n]
+    base = None
+    if with_base:
+        base = _k3_case("random_bits", itemsize, n, 7 + itemsize).to(cuda)
+    reset_launch_counts()
+    pk, hk = plane_producer(x, base, itemsize=itemsize, chunk_elems=chunk)
+    pp, hp = plane_producer_plain(x, base, itemsize=itemsize, chunk_elems=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["plane_producer"] == 1
+    assert torch.equal(pk, pp) and torch.equal(hk, hp)
+    if kind == "same_exponent" and not with_base:
+        assert int(hk[:, 0].count_nonzero()) == hk.shape[0]        # one bin a chunk
+
+
+def test_k7_more_segments_than_the_card_holds(cuda):
+    """3,200 segments (200 chunks of 131,072 symbols): more blocks than are
+    resident at once, so later segments start only as earlier ones end and
+    the look-back meets predecessors that have finished long before."""
+    rng = np.random.default_rng(11)
+    syms = np.clip(rng.normal(120, 3, 200 * 131_072), 0, 255).astype(np.uint8)
+    lens = huffman.code_lengths(np.bincount(syms[:131_072], minlength=256) + 1)
+    codes = huffman.canonical_codes(lens)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        syms, (np.arange(200) % 2).astype(np.int32),
+        np.stack([lens, lens]).astype(np.int32), np.stack([codes, codes]).astype(np.int32))]
+    wk, nk = bitpack_encode_chunks(*args, chunk_syms=131_072)
+    wp, np_ = bitpack_encode_chunks_plain(*args, chunk_syms=131_072)
+    torch.cuda.synchronize()
+    assert torch.equal(nk, np_) and torch.equal(wk, wp)
+
+
+# n past one wave of tiles at the longest tile: each block walks several
+@pytest.mark.parametrize("itemsize, n", [(2, 36_000_000), (4, 12_000_000)])
+def test_k3_tiles_past_one_wave(cuda, itemsize, n):
+    chunk = 131_072 // itemsize
+    n = n // chunk * chunk
+    x = _k3_case("weights", itemsize, n, 17).to(cuda)
+    pk, hk = plane_producer(x, itemsize=itemsize, chunk_elems=chunk)
+    pp, hp = plane_producer_plain(x, itemsize=itemsize, chunk_elems=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(hk, hp)
