@@ -104,7 +104,8 @@ K3_OPS_PER_ELEMENT = {2: 4 + 3 * 2, 4: 4 + 3 * 4}
 K7_OPS_PER_SYMBOL = 12
 # The ops kernels, per byte moved: K4/K11 rotate and permute (about 2);
 # K5/K10 XOR, and for K10 a byte compare, a population count and an add
-# per word (at most 1); K6/K9 byte extract, address, shared atomic, loop (4)
+# per word (at most 1); K6/K9 shift, mask, address add and a shared atomic (4, as
+# the compiled kernel's SASS has them)
 BYTEGROUP_OPS_PER_BYTE = 2
 XOR_OPS_PER_BYTE = 1
 HIST_OPS_PER_BYTE = 4

@@ -1,5 +1,6 @@
-"""Time the encode kernels K3 (plane producer) and K7/K8 (Huffman bit-pack)
-of this checkout against another checkout's on one CUDA card, in turns.
+"""Time the encode kernels K3 (plane producer) and K7/K8 (Huffman bit-pack),
+and the byte histograms K9/K6, of this checkout against another checkout's
+on one CUDA card, in turns.
 
     python3 src/repro_torch/kernels/encode_compare.py --other OTHER_CHECKOUT [--rounds 2]
 
@@ -14,8 +15,10 @@ evicted before it) and ``profiled_ms`` (the kernel's device time alone).  Cases:
 four variants at a 3072x768 leaf and bf16 at layer 0's batch as the store
 build launches it (each leaf padded to 131,072-element chunks); K7 on the
 leaf's 18 exponent chunks of 131,072 symbols; K8 on the same plane at
-8,192-symbol chunks.  Prints one JSON line per process and a summary of
-the medians per (case, tree).
+8,192-symbol chunks; K9 on the exponent plane of the ops path's leaf and
+K6 on it at 131,072-byte chunks, each call as its wrapper makes it
+(allocation and any zeroing included in the events).  Prints one JSON
+line per process and a summary of the medians per (case, tree).
 """
 
 from __future__ import annotations
@@ -77,6 +80,17 @@ def worker(src: str) -> dict:
             raise AssertionError(f"{key} disagrees with its plain version")
         out[key] = (chip_smoke.device_ms(run, 20),
                     chip_smoke.profiled_ms(run, r"bitpack_kernel", 20))
+
+    plane = chip_smoke.ops_inputs(dev)["exp"]
+    for key, run, plain in (
+        ("K9", lambda: K.byte_histogram(plane), lambda: K.byte_histogram_plain(plane)),
+        ("K6", lambda: K.chunk_histogram(plane, chip_smoke.BF16_CHUNK),
+         lambda: K.chunk_histogram_plain(plane, chip_smoke.BF16_CHUNK)),
+    ):
+        if not torch.equal(run(), plain()):
+            raise AssertionError(f"{key} disagrees with its plain version")
+        out[key] = (chip_smoke.device_ms(run, 50),
+                    chip_smoke.profiled_ms(run, r"hist_kernel", 20))
     return out
 
 

@@ -6,6 +6,8 @@ can hand each call a freshly decoded layer.
 
 from __future__ import annotations
 
+import torch
+
 from . import attention, layers
 
 __all__ = ["norm_apply", "mlp_apply", "dense_block_decode"]
@@ -25,7 +27,12 @@ def dense_block_decode(p, x, caches, pos, cfg):
         raise NotImplementedError("MLA attention is not ported yet")
     h = norm_apply(cfg, p["attn_norm"], x)
     a, ck, cv = attention.gqa_decode(p["attn"], h, caches[0], caches[1], pos, cfg)
-    x = x + a
-    h = norm_apply(cfg, p["mlp_norm"], x)
-    x = x + mlp_apply(cfg, p["mlp"], h)
+    # The reference's compiled step (default XLA flags) feeds the MLP norm
+    # the f32 sum x + a, dropping the bf16 round of the residual before the
+    # norm's f32 cast (its HLO: the f32 ``add`` of ``copy_add_fusion`` goes
+    # straight to the norm's ``multiply`` and ``reduce-window``); the
+    # residual stream itself is rounded, as the next ``add`` consumes it.
+    xs = x.to(torch.float32) + a                # a widens inside the add, exactly
+    h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
+    x = xs.to(x.dtype) + mlp_apply(cfg, p["mlp"], h)
     return x, (ck, cv)

@@ -10,8 +10,9 @@ operands to f32 (exact) and multiplies in f32.
 
 from __future__ import annotations
 
+import math
+
 import torch
-import torch.nn.functional as F
 
 __all__ = [
     "dense",
@@ -19,7 +20,9 @@ __all__ = [
     "layernorm",
     "rope_freqs",
     "apply_rope",
+    "silu_bf16",
     "swiglu",
+    "gelu_tanh_bf16",
     "gelu_mlp",
     "embed",
     "unembed",
@@ -64,20 +67,58 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def silu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` on bf16 as the reference's compiled step computes
+    it: ``x * (1 / (1 + exp(-x)))`` with a bf16 round after each op (its
+    HLO: ``negate``, ``exponential``, ``add``, ``divide``, ``multiply``, a
+    bf16 ``convert`` after each).  ``F.silu`` rounds once."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     xc = x.to(torch.bfloat16)
     g = xc @ p["w_gate"].to(torch.bfloat16)
     u = xc @ p["w_up"].to(torch.bfloat16)
-    return (F.silu(g) * u) @ p["w_down"].to(torch.bfloat16)
+    return (silu_bf16(g) * u) @ p["w_down"].to(torch.bfloat16)
+
+
+# jax.nn.gelu's constants as bf16 values (0.0446777344 and 0.796875), exact
+# as Python floats, so a bf16 tensor times one rounds as in the reference
+_GELU_CUBE = float(torch.tensor(0.044715, dtype=torch.bfloat16))
+_GELU_SCALE = float(torch.tensor(math.sqrt(2.0 / math.pi), dtype=torch.bfloat16))
+
+
+def gelu_tanh_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form) on bf16 as the reference's compiled
+    decode step computes it: every op rounds to bf16, constants included.
+
+    The optimised HLO of the reference's jitted ``decode_step`` with
+    ``mlp="gelu"`` keeps a bf16 ``convert`` after each op of the formula
+    under the default XLA flags: after each of the two ``multiply``s of
+    ``integer_pow`` (``x**3`` as ``(x*x)*x``), after ``0.0446777344 * .``
+    (``0.044715`` in bf16), ``x + .``, ``0.796875 * .`` (``sqrt(2/pi)`` in
+    bf16), ``tanh``, ``1 + .``, ``0.5 * .`` and the final ``x * .``.
+    ``F.gelu(approximate="tanh")`` rounds once and keeps the constants'
+    f32 values.  One difference remains: XLA on the CPU flushes subnormal
+    inputs, intermediates and results to zero, and this does not.
+    """
+    inner = _GELU_SCALE * (x + _GELU_CUBE * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def _f32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` of bf16 operands as the compiled reference's ``dot``: the
+    operands cast to f32 (exact), multiplied in f32, rounded to bf16."""
+    a = a.to(torch.bfloat16).to(torch.float32)
+    return (a @ w.to(torch.bfloat16).to(torch.float32)).to(torch.bfloat16)
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    xc = x.to(torch.bfloat16)
-    h = F.gelu(
-        xc @ p["w_in"].to(torch.bfloat16) + p["b_in"].to(torch.bfloat16),
-        approximate="tanh",               # jax.nn.gelu's default
-    )
-    return h @ p["w_out"].to(torch.bfloat16) + p["b_out"].to(torch.bfloat16)
+    """Both products as f32 ``dot``s rounded to bf16, the bias add rounded
+    before the GELU (the reference's HLO); a bf16 product here sums in
+    another order and lands a near-tie on the other side of a rounding."""
+    h = gelu_tanh_bf16(_f32_product(x, p["w_in"]) + p["b_in"].to(torch.bfloat16))
+    return _f32_product(h, p["w_out"]) + p["b_out"].to(torch.bfloat16)
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:

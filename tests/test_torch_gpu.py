@@ -55,6 +55,7 @@ from repro_torch.kernels import (
     xor_elems,
     xor_elems_plain,
 )
+from repro_torch.kernels import histogram as histogram_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.huffdecode import fuse_lut, pack_words, sync_offsets, sync_word_cap
 from repro_torch.models import decode_step, init_decode_state
@@ -623,3 +624,106 @@ def test_k3_tiles_past_one_wave(cuda, itemsize, n):
     pp, hp = plane_producer_plain(x, itemsize=itemsize, chunk_elems=chunk)
     torch.cuda.synchronize()
     assert torch.equal(pk, pp) and torch.equal(hk, hp)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned K9/K6 (one wave of contiguous parts, 16-byte loads, a
+# shared histogram a block)
+# ---------------------------------------------------------------------------
+
+def _hist_plane(kind, n, seed):
+    """n bytes of one kind, as a CPU uint8 tensor."""
+    rng = np.random.default_rng(seed)
+    if kind == "exponent":                # a bf16 weight's exponent plane
+        w = torch.from_numpy((rng.standard_normal(n) * 0.02).astype(np.float32))
+        return bytegroup_bf16_plain(w.to(torch.bfloat16).view(torch.int16))[0]
+    if kind == "uniform":
+        return torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8))
+    if kind == "one value":               # every byte on one bin
+        return torch.full((n,), 121, dtype=torch.uint8)
+    return torch.zeros(n, dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("kind, n, chunk, offset", [
+    ("exponent", 3072 * 768, 3072 * 768, 0),          # the ops path's leaf, K9
+    ("exponent", 3072 * 768, 131_072, 0),             # and K6
+    ("exponent", 3072 * 768 - 5, 131_072, 1),         # one byte in, a short last chunk
+    ("uniform", 3072 * 768, 3072 * 768, 0),
+    ("uniform", 3072 * 768, 131_072, 3),
+    ("one value", 3_000_000, 3_000_000, 0),           # every lane of a warp on one bin
+    ("one value", 3_000_000, 131_072, 0),
+    ("zeros", 1_000_003, 1_000_003, 1),
+    ("exponent", 10_000, 100, 0),                     # chunks shorter than a part
+    ("exponent", 100_003, 7_000, 5),
+    ("exponent", 1_000_000, 16, 0),                   # more rows than one wave: each
+    ("exponent", 5_000_001, 3_000, 3),                # block walks many chunks
+    ("uniform", 1, 1, 0),                             # less than one vector
+    ("uniform", 15, 15, 3),
+    ("uniform", 17, 5, 1),
+    ("exponent", 64_000_007, 64_000_007, 0),          # many vectors a thread
+    ("exponent", 64_000_007, 131_072, 2),
+])
+def test_k6_k9_redesign_matches_plain(cuda, kind, n, chunk, offset):
+    x = torch.cat([torch.zeros(offset, dtype=torch.uint8), _hist_plane(kind, n, n)])
+    x = x.to(cuda)[offset:]
+    rows = -(-n // chunk)
+    # the caching allocator hands the wrappers these blocks back, so a count
+    # left unzeroed would show
+    stale = [torch.full((rows, 256), 7, dtype=torch.int32, device=cuda),
+             torch.full((256,), 7, dtype=torch.int32, device=cuda)]
+    del stale
+    reset_launch_counts()
+    hk, bk = chunk_histogram(x, chunk), byte_histogram(x)
+    hp, bp = chunk_histogram_plain(x, chunk), byte_histogram_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hp) and torch.equal(bk, bp) and int(bk.sum()) == n
+    assert launch_counts()["chunk_histogram"] == 1 and launch_counts()["byte_histogram"] == 1
+
+
+def test_k6_k9_launch_failure_raises(cuda, monkeypatch):
+    """A launch the C entry refuses (here a chunk length of 0) raises
+    through the wrappers and is not counted."""
+    x = _hist_plane("exponent", 300_000, 22).to(cuda)
+    launch = histogram_mod._launcher()
+    monkeypatch.setattr(histogram_mod, "_launcher",
+                        lambda: lambda x, out, n, chunk, s: launch(x, out, n, 0, s))
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="histogram launch"):
+        chunk_histogram(x, 100_000)
+    with pytest.raises(RuntimeError, match="histogram launch"):
+        byte_histogram(x)
+    assert launch_counts()["chunk_histogram"] == 0 and launch_counts()["byte_histogram"] == 0
+    monkeypatch.undo()
+    assert torch.equal(chunk_histogram(x, 100_000), chunk_histogram_plain(x, 100_000))
+
+
+def test_k6_k9_on_two_streams_at_once(cuda):
+    """Launches on two streams at once each count their own input."""
+    xs = [_hist_plane(k, 2_000_000, 23 + i).to(cuda) for i, k in enumerate(("exponent", "uniform"))]
+    want = [chunk_histogram_plain(x, 65_536) for x in xs]
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    got = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(10):
+        for i, (s, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(s):
+                got[i].append(chunk_histogram(x, 65_536))
+    torch.cuda.synchronize()
+    assert all(torch.equal(h, w) for hs, w in zip(got, want) for h in hs)
+
+
+def test_k6_k9_in_a_cuda_graph(cuda):
+    """A launch captured in a CUDA graph zeroes and counts anew at each replay."""
+    x = _hist_plane("exponent", 300_000, 26).to(cuda)
+    chunk_histogram(x, 65_536), byte_histogram(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h, b = chunk_histogram(x, 65_536), byte_histogram(x)
+    for seed in (27, 28):
+        x.copy_(_hist_plane("uniform", 300_000, seed).to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(h, chunk_histogram_plain(x, 65_536))
+        assert torch.equal(b, byte_histogram_plain(x))
