@@ -65,13 +65,27 @@ without printing the final line:
 10. measurements, every kernel timed one way: CUDA events around each
     launch with L2 evicted before it (``device_ms``) and the device time
     alone from ``torch.profiler`` (``profiled_ms``), for K1 (the sync
-    decode and the index pass in turns, and the sync decode at 256, 512 and
-    1,024 symbols a sub-stream), K2, K3 (at the leaf and at a layer's batch
-    as the store build launches it) and K7 at the main path's shapes and the
-    ops kernels at the 3072x768 leaf, beside their plain versions and
-    ``torch.bitwise_xor`` (K5) and ``torch.bincount`` (K9);
-11. report: store sizes, build times, tokens/s, the ``kernels`` JSON line,
-    and last ``{"ok": true, "device": {...}}``.
+    decode and the index pass in turns, the one-shot serial decode, and the
+    sync decode at 256, 512 and 1,024 symbols a sub-stream), K2, K3 (at the
+    leaf and at a layer's batch as the store build launches it) and K7 at
+    the main path's shapes and the ops kernels at the 3072x768 leaf, beside
+    their plain versions and ``torch.bitwise_xor`` (K5) and
+    ``torch.bincount`` (K9);
+11. files: the main path's stacks (226.5 MB of bf16) as one raw stream
+    through ``compress_file`` on the card (``backend="device"``, 64 MiB
+    frames, two in flight: K3 and K7 a frame) must equal the host's file,
+    and ``decompress_file`` on the card (K1's one-shot decode and K2 a
+    frame) must give the stream back; the frozen
+    ``tests/fixtures/bf16_stream.znns`` decodes on the card;
+12. checkpoints: repro_gpt_100m's params on the card with fp32 AdamW
+    moments for every parameter, three async saves on the card
+    (``base_every=3``: base, delta, delta; the state updated in place
+    right after each save returns), then ``restore(device_resident=True)``
+    must equal the last state bit for bit; the same saves of layers 0-1
+    of the stacks and their moments on the card and on the host must write
+    equal bytes;
+13. report: store sizes, build times, tokens/s, file and checkpoint times,
+    the ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -111,6 +125,11 @@ XOR_OPS_PER_BYTE = 1
 HIST_OPS_PER_BYTE = 4
 # The ops kernels' demangled names (K11 is K2's unplane_kernel)
 OPS_KERNELS = r"::group_(bf16|fp32)\(|unplane_kernel|xor_kernel|hist_kernel|bitpack_kernel"
+# The kernels the file and checkpoint paths run: K1's one-shot (serial)
+# decode, K2, K3 and K7
+FILE_CKPT_KERNELS = ("huffdecode_serial", "plane_consumer", "plane_producer",
+                     "bitpack_encode_chunks")
+ADAMW_BETAS = (0.9, 0.95)        # the reference's AdamWConfig b1, b2
 K8_CHUNK = 1 << 13               # the reference's ops.huffman_encode_chunks default
 L2_SCRUB_BYTES = 128 << 20       # read between timed launches: over twice the 50 MB L2
 BF16_CHUNK = 1 << 17             # plane chunk of the default 256 KiB parameter chunks
@@ -552,7 +571,7 @@ def phase_main(dev, cfg, zcfg):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     host_store = CompressedParamStore.from_params(
-        params, zcfg, options=CodecOptions(threads=-1), device=dev
+        params, zcfg, options=CodecOptions(threads=-1, backend="host"), device=dev
     )
     t_host = time.perf_counter() - t0
 
@@ -827,7 +846,7 @@ def phase_delta(dev, zcfg, params):
     t0 = time.perf_counter()
     host = zipnn.delta_compress_batched(
         [n.cpu() for n in news], [b.cpu() for b in bases], zcfg,
-        options=CodecOptions(threads=-1),
+        options=CodecOptions(threads=-1, backend="host"),
     )
     t_host = time.perf_counter() - t0
     device_entropy.reset_transfer_stats()
@@ -875,7 +894,8 @@ def phase_fp32(dev, zcfg, params):
     tree = _util.tree_map(lambda a: a[:2].float().contiguous(), params["layers"])
     t0 = time.perf_counter()
     host = zipnn.compress_pytree(
-        _util.tree_map(lambda a: a.cpu(), tree), zcfg, options=CodecOptions(threads=-1)
+        _util.tree_map(lambda a: a.cpu(), tree), zcfg,
+        options=CodecOptions(threads=-1, backend="host"),
     )
     t_host = time.perf_counter() - t0
     device_entropy.reset_transfer_stats()
@@ -904,6 +924,364 @@ def phase_fp32(dev, zcfg, params):
         f"ratio {100.0 * got['comp_bytes'] / raw:.3f}%; encode host {t_host:.3f} s "
         f"({raw / 1e6 / t_host:.1f} MB/s), card {t_dev:.3f} s ({raw / 1e6 / t_dev:.1f} MB/s); "
         f"launches {launches}")
+
+
+def _path_launches():
+    """The counts of the kernels this slice's paths run (K1's one-shot
+    serial form, K2, K3, K7)."""
+    from repro_torch.kernels import launch_counts
+
+    c = launch_counts()
+    return {k: c[k] for k in FILE_CKPT_KERNELS}
+
+
+def _same_file(a: str, b: str) -> bool:
+    import filecmp
+
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def phase_file(dev, zcfg, params):
+    """The ZNS1 file engine at full width: the main path's stacks
+    (226.5 MB of bf16) as one raw stream through ``compress_file`` on the
+    card (K3 and K7 per 64 MiB frame, two frames in flight) and on the
+    host, and again with no backend given (the ``"auto"`` default must put
+    the frames on the card); the files must be equal, and
+    ``decompress_file`` on the card (K1 one-shot and K2 per frame) must
+    give the stream back.  Then the frozen
+    ``tests/fixtures/bf16_stream.znns`` decodes on the card."""
+    import io
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import _util
+    from repro_torch.core import engine, zipnn
+    from repro_torch.core.options import CodecOptions
+    from repro_torch.kernels import reset_launch_counts
+
+    work = os.path.join(ROOT, "build", "chip_file")
+    os.makedirs(work, exist_ok=True)
+    src, card, auto, host, back = (os.path.join(work, n) for n in (
+        "stacks.raw", "card.znns", "auto.znns", "host.znns", "back.raw"))
+    try:
+        with open(src, "wb") as f:
+            for leaf in _util.tree_leaves(params["layers"]):
+                f.write(leaf.reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        raw_mb = os.path.getsize(src) / 1e6
+        card_opts = CodecOptions(threads=-1, backend="device")
+        host_opts = CodecOptions(threads=-1, backend="host")
+        # the host's Huffman decoder runs each worker's chunks in a Python
+        # loop of one step a symbol, so a pool only adds contention: serial
+        host_dec = CodecOptions(threads=0, backend="host")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw_b, comp_b = engine.compress_file(src, card, "bfloat16", zcfg, options=card_opts,
+                                             pipeline_depth=2, device=dev)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = engine.decompress_file(card, back, zcfg, options=card_opts, device=dev)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        launches = _path_launches()
+        frames = sum(1 for _ in engine.frame_records(card))
+        plan = {"huffdecode_serial": frames, "plane_consumer": frames,
+                "plane_producer": frames, "bitpack_encode_chunks": frames}
+        if launches != plan:
+            raise AssertionError(f"file path launches {launches}, plan {plan}")
+        if n != raw_b or not _same_file(src, back):
+            raise AssertionError("the file decoded on the card differs from the stream")
+        # the device time, again, and the "auto" default: with no backend
+        # given, every frame is host bytes and encodes on the card
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.compress_file(src, auto, "bfloat16", zcfg,
+                                 options=CodecOptions(threads=-1), device=dev)
+            torch.cuda.synchronize()
+        enc_device = device_breakdown(prof)
+        by_default = _path_launches()
+        if by_default["plane_producer"] != frames or by_default["bitpack_encode_chunks"] != frames:
+            raise AssertionError(f"the default file encode did not run on the card: {by_default}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.decompress_file(card, back, zcfg, options=card_opts, device=dev)
+            torch.cuda.synchronize()
+        dec_device = device_breakdown(prof)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.compress_file(src, host, "bfloat16", zcfg, options=host_opts)
+        t_henc = time.perf_counter() - t0
+        os.remove(back)
+        t0 = time.perf_counter()
+        engine.decompress_file(host, back, zcfg, options=host_dec)
+        t_hdec = time.perf_counter() - t0
+        if any(_path_launches().values()):
+            raise AssertionError("the host file path launched a kernel")
+        if not (_same_file(card, host) and _same_file(auto, host) and _same_file(src, back)):
+            raise AssertionError("the file written on the card differs from the host's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"file: {raw_mb:.1f} MB of stacks, {frames} frames of {engine.DEFAULT_WINDOW >> 20} "
+        f"MiB, ratio {100.0 * comp_b / raw_b:.3f}% ({comp_b} B); the files written on the card "
+        f"(backend \"device\", and the \"auto\" default) equal the host's and it decodes to the stream on the card; encode card {t_enc:.3f} s "
+        f"({raw_mb / t_enc:.1f} MB/s), host {t_henc:.3f} s ({raw_mb / t_henc:.1f} MB/s); decode "
+        f"card {t_dec:.3f} s ({raw_mb / t_dec:.1f} MB/s), host {t_hdec:.3f} s "
+        f"({raw_mb / t_hdec:.1f} MB/s); launches {launches}; device ms (a second run of each "
+        f"under the profiler) encode {enc_device}, decode {dec_device}")
+
+    with open(os.path.join(ROOT, "tests", "fixtures", "meta.json")) as f:
+        fx = next(x for x in json.load(f)["fixtures"] if x["kind"] == "stream")
+    with open(os.path.join(ROOT, "tests", "fixtures", fx["raw"]), "rb") as f:
+        want = f.read()
+    reset_launch_counts()
+    out = io.BytesIO()
+    engine.decompress_file(os.path.join(ROOT, "tests", "fixtures", fx["blob"]), out,
+                           zipnn.ZipNNConfig(**fx["config"]),
+                           options=CodecOptions(backend="device"), device=dev)
+    k2 = _path_launches()["plane_consumer"]
+    if out.getvalue() != want or not k2:
+        raise AssertionError(f"the frozen ZNS1 fixture does not decode on the card (K2 {k2})")
+    log(f"file: tests/fixtures/{fx['blob']} decodes bit-exactly on the card "
+        f"({k2} K2 launches; its zlib chunks decode on the host)")
+    return {"launches": launches, "frames": frames, "raw_mb": raw_mb,
+            "encode_s": {"card": t_enc, "host": t_henc},
+            "decode_s": {"card": t_dec, "host": t_hdec},
+            "encode_device_ms": enc_device, "decode_device_ms": dec_device}
+
+
+class timed_calls:
+    """Within the block, add the seconds spent in each of ``names`` of
+    ``module`` (called through the module, as the checkpoint manager calls
+    the codec) to ``self.seconds``."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.seconds = module, names, {n: 0.0 for n in names}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+
+        def wrap(name, fn):
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.seconds[name] += time.perf_counter() - t0
+            return timed
+
+        for n, fn in self.saved.items():
+            setattr(self.module, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def device_breakdown(prof):
+    """Device ms by kernel of one ``torch.profiler`` session (CUDA only)."""
+    parts = {"K1": r"huffdecode_kernel", "K2": r"unplane_kernel", "K3": r"(?<!un)plane_kernel",
+             "K7": r"bitpack_kernel", "copies": r"Memcpy|Memset", "all": r"."}
+    return {k: round(kernel_device_ms(prof, rx)[0], 4) for k, rx in parts.items()}
+
+
+def chunk_methods(directory, step):
+    """Chunks of each method (huff, zlib, store, zero) in one step's blobs."""
+    from repro_torch.core import codec, container
+
+    d = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        entries = json.load(f)["entries"]
+    counts: dict = {}
+    with open(os.path.join(d, "data.bin"), "rb") as f:
+        for e in entries:
+            f.seek(e["offset"])
+            meta, _ = container.unpack_stream(f.read(e["size"]))
+            for pe in meta.entries:
+                for c in pe:
+                    name = codec.Method.NAMES[c.method]
+                    counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def adamw_state(dev, params, seed):
+    """``{"params": copy of params, "opt": {"m", "v", "step"}}``: fp32
+    moments after a few EMA steps (the reference's AdamWConfig: b1 0.9,
+    b2 0.95) over seeded gradients of scale 1e-3, and the step count."""
+    import torch
+
+    from repro_torch import _util
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = {
+        "params": _util.tree_map(lambda t: t.clone(), params),
+        "opt": {"m": _util.tree_map(lambda t: torch.zeros(t.shape, device=dev), params),
+                "v": _util.tree_map(lambda t: torch.zeros(t.shape, device=dev), params),
+                "step": torch.tensor(0, device=dev)},
+    }
+    for _ in range(3):
+        train_step(state, gen)
+    return state, gen
+
+
+def train_step(state, gen):
+    """One simulated step, in place: params as ``phase_delta`` moves them
+    (``bf16(p + 1e-4 * N(0, 1))``), moments one EMA step on a new
+    gradient."""
+    import torch
+
+    from repro_torch import _util
+
+    b1, b2 = ADAMW_BETAS
+    for p, m, v in zip(*(_util.tree_leaves(t) for t in (
+            state["params"], state["opt"]["m"], state["opt"]["v"]))):
+        g = 1e-3 * torch.randn(p.shape, generator=gen, device=p.device)
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        p.copy_((p.float() + 1e-4 * torch.randn(p.shape, generator=gen, device=p.device))
+                .to(p.dtype))
+    state["opt"]["step"].add_(1)
+
+
+def _run_saves(directory, dev, zcfg, states, backend, update=None):
+    """Three saves at base_every=3, async; ``update(i)`` runs right after
+    save i returns (the training thread's next step).  Returns the manager
+    and per save (seconds until save() returned, seconds until the save
+    was on disk)."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core.options import CodecOptions
+
+    mgr = CheckpointManager(CheckpointConfig(
+        directory, base_every=3, async_save=True,
+        options=CodecOptions(threads=-1, backend=backend), zipnn=zcfg, device=dev))
+    times = []
+    for i, state in enumerate(states):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(i, state(i) if callable(state) else state)
+        t_ret = time.perf_counter() - t0
+        if update is not None:
+            update(i)
+        mgr.wait()
+        times.append((t_ret, time.perf_counter() - t0))
+    return mgr, times
+
+
+def phase_checkpoint(dev, zcfg, params):
+    """Checkpoints at full width: repro_gpt_100m's params on the card with
+    AdamW moments m/v in fp32 for every parameter; three async saves on the
+    card (base, delta, delta: K3 with the XOR fused in, K7), the state
+    updated in place by a simulated step right after each save returns;
+    then ``restore(device_resident=True)`` (K1 one-shot, K2 with and
+    without a base) must equal the last state bit for bit.  The same saves
+    of layers 0-1 of the stacks and their moments (cut to bound the host's
+    time) on the card and on the host must write equal bytes."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import _util
+    from repro_torch.core import zipnn
+    from repro_torch.kernels import reset_launch_counts
+
+    state, gen = adamw_state(dev, params, SEED + 20)
+    raw = sum(t.numel() * t.element_size() for _, t in _util.tree_flatten_with_keys(state))
+    work = os.path.join(ROOT, "build", "chip_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    small = []
+
+    def cut(tree):           # layers 0-1 of the stacks and their moments
+        return {"params": {"layers": _util.tree_map(lambda t: t[:2].clone(),
+                                                    tree["params"]["layers"])},
+                "opt": {k: {"layers": _util.tree_map(lambda t: t[:2].clone(),
+                                                     tree["opt"][k]["layers"])}
+                        for k in ("m", "v")}}
+
+    def update(i):
+        if i < 2:
+            train_step(state, gen)
+
+    def at(i):
+        small.append(cut(state))
+        return state
+
+    try:
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, timed_calls(
+                zipnn, ("compress_array", "delta_compress_batched")) as enc:
+            mgr, times = _run_saves(os.path.join(work, "card"), dev, zcfg, [at] * 3, "device",
+                                    update)
+            torch.cuda.synchronize()
+        save_launches = _path_launches()
+        save_device = device_breakdown(prof)
+        methods = [chunk_methods(os.path.join(work, "card"), i) for i in range(3)]
+        held = mgr.held_bytes()
+        stats = mgr.stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with timed_calls(zipnn, ("delta_decompress", "decompress_pytree")) as dec:
+            t0 = time.perf_counter()
+            step, tree = mgr.restore(device_resident=True)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+        restore_launches = _path_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mgr.restore(device_resident=True)
+            torch.cuda.synchronize()
+        restore_device = device_breakdown(prof)
+        got, want = _util.tree_flatten_with_keys(tree), _util.tree_flatten_with_keys(state)
+        if step != 2 or [k for k, _ in got] != [k for k, _ in want]:
+            raise AssertionError(f"restore gave step {step} with keys {[k for k, _ in got][:5]}")
+        for (k, a), (_, b) in zip(got, want):
+            if not (a.device == dev and a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                    a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))):
+                raise AssertionError(f"restored {k} differs from the saved state")
+        for name, n in ((k, save_launches[k]) for k in ("plane_producer", "bitpack_encode_chunks")):
+            if not n:
+                raise AssertionError(f"{name} never launched in the card saves")
+        for name, n in ((k, restore_launches[k]) for k in ("huffdecode_serial", "plane_consumer")):
+            if not n:
+                raise AssertionError(f"{name} never launched in the card restore")
+        del tree, got
+        disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(work) for f in fs)
+        shutil.rmtree(work)
+
+        card_s, card_t = _run_saves(os.path.join(work, "small_card"), dev, zcfg, small, "device")
+        host_s, host_t = _run_saves(os.path.join(work, "small_host"), dev, zcfg, small, "host")
+        for i in range(3):
+            for name in ("manifest.json", "data.bin"):
+                a, b = (os.path.join(work, d, f"step_{i}", name) for d in ("small_card", "small_host"))
+                if not _same_file(a, b):
+                    raise AssertionError(f"step {i} {name}: the card's bytes differ from the host's")
+        small_raw = sum(t.numel() * t.element_size()
+                        for _, t in _util.tree_flatten_with_keys(small[0]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"checkpoint: repro_gpt_100m params and fp32 m/v, {raw / 1e6:.1f} MB a save, 3 async "
+        f"saves on the card (base_every 3): seconds to return / to disk per save "
+        f"{[(round(a, 4), round(b, 4)) for a, b in times]}; ratio_pct per save "
+        f"{[(s['kind'], round(s['ratio_pct'], 3)) for s in stats]}; {disk} B on disk; "
+        f"restore(device_resident=True) of step 2 {t_restore:.3f} s, bit-exact on the card; "
+        f"launches: saves {save_launches}, restore {restore_launches}; bytes the manager holds "
+        f"for the next save {held}")
+    log(f"checkpoint, where the time goes: the 3 saves (CUDA profiler on) {sum(b for _, b in times):.3f} s, "
+        f"of it in the encode calls {({k: round(v, 3) for k, v in enc.seconds.items()})}, "
+        f"device ms {save_device}; chunks by method per save {methods}; the restore "
+        f"{t_restore:.3f} s, of it in the decode calls "
+        f"{({k: round(v, 3) for k, v in dec.seconds.items()})}, device ms (a second restore "
+        f"under the profiler) {restore_device}")
+    log(f"checkpoint, layers 0-1 and their moments ({small_raw / 1e6:.1f} MB a save; cut to "
+        f"bound the host's time): card and host write equal bytes at all 3 steps; seconds to "
+        f"disk per save card {[round(b, 4) for _, b in card_t]}, host "
+        f"{[round(b, 4) for _, b in host_t]}")
+    return {"save_launches": save_launches, "restore_launches": restore_launches,
+            "save_s": times, "restore_s": t_restore, "held_bytes": held,
+            "save_device_ms": save_device, "restore_device_ms": restore_device}
 
 
 def ops_inputs(dev):
@@ -1098,6 +1476,7 @@ def measure_k1(store, dev):
 
     from repro_torch.kernels import (
         huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index, huffdecode_index_plain,
+        huffdecode_serial,
     )
     from repro_torch.kernels.huffdecode import SYNC_EVERY, sync_offsets
 
@@ -1118,6 +1497,11 @@ def measure_k1(store, dev):
     ms, index_ms = (s_a + s_b) / 2, (i_a + i_b) / 2
     kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 10)
     index_kernel_ms = profiled_ms(index, r"huffdecode_kernel", 2)
+    # the one-shot serial decode that restores and file frames run
+    out_s = torch.zeros(n_out, dtype=torch.uint8, device=dev)
+    serial = lambda: huffdecode_serial(**args, out=out_s)  # noqa: E731
+    serial_ms = device_ms(serial, 3)
+    serial_kernel_ms = profiled_ms(serial, r"huffdecode_kernel", 2)
     plain = []
     plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(
         **args, out=out_p, sync=sync, sync_off=sync_off)), 3)
@@ -1126,7 +1510,10 @@ def measure_k1(store, dev):
         **args, out=out_ip, sync_off=sync_off)), 1, warm=False)
     cur_k = run()
     cur_i, sync_i = index()
+    cur_s = serial()
     torch.cuda.synchronize()
+    if not torch.equal(out, out_s) or not torch.equal(cur_k, cur_s):
+        raise AssertionError("K1's one-shot decode disagrees at the main-path shape")
     if not (torch.equal(out, out_p) and torch.equal(out, out_i) and torch.equal(out, out_ip)
             and torch.equal(cur_k, plain[0]) and torch.equal(cur_k, cur_i)
             and torch.equal(cur_k, plain_index[0][0]) and torch.equal(sync_i, sync)
@@ -1144,7 +1531,9 @@ def measure_k1(store, dev):
         f"{SYNC_EVERY} symbols ({sync_bytes} B of index); sync decode {ms:.5f} ms ({s_a:.5f} "
         f"then {s_b:.5f}; device time alone, profiler: {kernel_ms}), plain {plain_ms:.2f} ms; "
         f"index pass {index_ms:.4f} ms ({i_a:.4f} then {i_b:.4f}; device time alone "
-        f"{index_kernel_ms}), plain {plain_index_ms:.1f} ms; bound {b:.6f} ms ({by}, {nbytes} B)")
+        f"{index_kernel_ms}), plain {plain_index_ms:.1f} ms; one-shot serial decode "
+        f"{serial_ms:.4f} ms (device time alone {serial_kernel_ms}); bound {b:.6f} ms "
+        f"({by}, {nbytes} B)")
 
     sweep = {}
     counts_h = args["counts"].cpu().numpy()
@@ -1165,6 +1554,7 @@ def measure_k1(store, dev):
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "kernel_ms_profiler": kernel_ms, "index_ms": index_ms,
             "index_plain_ms": plain_index_ms, "index_kernel_ms_profiler": index_kernel_ms,
+            "serial_ms": serial_ms, "serial_kernel_ms_profiler": serial_kernel_ms,
             "sweep": sweep}
 
 
@@ -1393,6 +1783,9 @@ def main() -> int:
     k3 = k3_rows["bf16"]
     k7 = measure_k7(dev)
     ops_rows = measure_ops(dev)
+    # this slice's paths: the ZNS1 file engine and checkpoints, full width
+    files = phase_file(dev, zcfg, params)
+    ckpt = phase_checkpoint(dev, zcfg, params)
     reset_launch_counts()
 
     # Every row's ms is device_ms (L2 evicted before each call) and its
@@ -1412,14 +1805,20 @@ def main() -> int:
          "index_pass": {"launches": build_launches["huffdecode_index"],
                         "ms": k1["index_ms"], "plain_ms": k1["index_plain_ms"],
                         "kernel_ms_profiler": k1["index_kernel_ms_profiler"]},
-         "sync_every_sweep": k1["sweep"], "ring_trace": ring},
+         "sync_every_sweep": k1["sweep"], "ring_trace": ring,
+         # the one-shot serial decode: every card file frame and restore
+         "one_shot": {"launches_file": files["launches"]["huffdecode_serial"],
+                      "launches_checkpoint_restore": ckpt["restore_launches"]["huffdecode_serial"],
+                      "ms": k1["serial_ms"], "kernel_ms_profiler": k1["serial_kernel_ms_profiler"]}},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
          "launches": launches["plane_consumer"],
          "launches_per_step": per_step["plane_consumer"], "max_abs_err": k2_err,
          "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2], "bound_by": k2[3],
-         "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4]},
+         "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4],
+         "launches_file": files["launches"]["plane_consumer"],
+         "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"]},
         {"name": "plane_producer", "route": "cuda",
          "source": "src/repro_torch/csrc/plane.cu",
          "replaces": "src/repro/kernels/fused_plane.py:52",
@@ -1427,14 +1826,18 @@ def main() -> int:
          "launches_per_build": build_plan["plane_producer"], "max_abs_err": k3_err,
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None, "library": no_library,
-         "kernel_ms_profiler": k3["kernel_ms_profiler"], "variants": k3_rows},
+         "kernel_ms_profiler": k3["kernel_ms_profiler"], "variants": k3_rows,
+         "launches_file": files["launches"]["plane_producer"],
+         "launches_checkpoint_save": ckpt["save_launches"]["plane_producer"]},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",
          "launches": build_launches["bitpack_encode_chunks"],
          "launches_per_build": build_plan["bitpack_encode_chunks"], "max_abs_err": k7_err,
          "ms": k7[0], "plain_ms": k7[1], "bound_ms": k7[2], "bound_by": k7[3],
-         "library_ms": None, "library": no_library, "kernel_ms_profiler": k7[4]},
+         "library_ms": None, "library": no_library, "kernel_ms_profiler": k7[4],
+         "launches_file": files["launches"]["bitpack_encode_chunks"],
+         "launches_checkpoint_save": ckpt["save_launches"]["bitpack_encode_chunks"]},
     ]
     # The ops kernels: launches are those of the ops path over the 108
     # leaves; times from measure_ops (K4/K11 list both widths, K5 both

@@ -17,6 +17,7 @@ __all__ = [
     "dtype_name",
     "torch_dtype",
     "tree_flatten",
+    "tree_flatten_with_keys",
     "tree_unflatten",
     "tree_leaves",
     "tree_map",
@@ -71,6 +72,29 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
         return None
 
     return leaves, walk(tree)
+
+
+def tree_flatten_with_keys(tree: Any) -> List[Tuple[str, Any]]:
+    """``(key, leaf)`` pairs in leaf order, keyed as the reference's
+    checkpoints key ``jax.tree_util.tree_flatten_with_path``: dict keys
+    (sorted) and list/tuple indices joined with ``/``.  ``None`` is an
+    empty node, as in JAX: it has no leaf and no key."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, x in enumerate(node):
+                walk(x, path + (str(i),))
+        else:
+            out.append(("/".join(path), node))
+
+    walk(tree, ())
+    return out
 
 
 def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> Any:

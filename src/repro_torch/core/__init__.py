@@ -1,7 +1,7 @@
 """Host codec (bit layouts, canonical Huffman, chunked planes, ZNN1
-container), the device encode path (K3 plane producer, K7 Huffman
-bit-pack) and the device decode path (K1 Huffman decode, K2 plane
-consumer) on PyTorch tensors."""
+container), the ZNS1 file engine, the device encode path (K3 plane
+producer, K7 Huffman bit-pack) and the device decode path (K1 Huffman
+decode, K2 plane consumer) on PyTorch tensors."""
 
 from . import (
     bitlayout,

@@ -18,7 +18,9 @@ Backends (the ``backend`` knob of :class:`.zipnn.ZipNNConfig`
   the envelope below, the host path otherwise (as the reference routes
   it).  With ``device="cuda"`` and no card it raises: there is no quiet
   host fallback;
-* ``"auto"``   — the K3 path only for leaves already on a CUDA device.
+* ``"auto"``   — the K3 path for tensors already on a CUDA device, and for
+  host bytes when ``device`` is a card that is present
+  (:func:`.options.resolve_backend`).
 
 Envelope: rotated 2- and 4-byte layouts (bf16 / fp16 / fp32) with a
 per-plane chunk size that is a whole number of the reference's histogram

@@ -20,27 +20,39 @@ Entry points:
   * :func:`build_array_feed` → :class:`ArrayFeed` — one tensor's payloads
     resident on the device, decoded again on every call with no payload
     upload (the compressed-resident serving ring's path).
+  * :func:`compress_file` / :func:`decompress_file`,
+    :class:`CompressWriter` / :class:`DecompressReader` (from
+    :mod:`.engine`) — ZNS1 streams of ZNN1 frames, O(window) memory.
+  * :func:`compressed_size` / :func:`ratio`; :class:`ZipNNSession` (from
+    :mod:`.options`) binds a config and options for the whole surface.
 
-Every compress entry point takes ``options.backend`` (default: the
-config's ``plane_backend``) and ``device=`` (default ``"cuda"``):
-``"host"`` runs rotate / byte-group / probe in numpy; ``"device"`` runs
-them as one launch of K3 on ``device`` (:mod:`.device_plane`), with the
-XOR of a delta fused in; ``"auto"`` picks the device for leaves already on
-a CUDA device.  ``options.entropy_backend`` (default: the config's
-``entropy_backend``, then the plane backend) does the same for the
-Huffman bit-packing of the planned ``HUFF`` chunks, with K7
+Every entry point takes ``options`` (:class:`CodecOptions`) and ``device=``
+(default ``"cuda"``).  ``options.backend`` (default: the config's
+``plane_backend``, ``"auto"``) chooses where the plane stage runs on
+encode: ``"host"`` runs rotate / byte-group / probe in numpy; ``"device"``
+runs them as one launch of K3 on ``device`` (:mod:`.device_plane`), with
+the XOR of a delta fused in; ``"auto"`` picks the device for tensors
+already on a CUDA device, and for host bytes (:func:`compress_bytes`, so
+every file frame) when ``device`` is a card that is present
+(:func:`.options.resolve_backend`).  ``options.entropy_backend`` (default: the
+config's ``entropy_backend``, then the plane backend) does the same for
+the Huffman bit-packing of the planned ``HUFF`` chunks, with K7
 (:mod:`.device_entropy`); only the canonical ``huffman`` coder has a
-device form.  Leaves outside a stage's envelope take the host path for
-that stage, as the reference routes them; a leaf routed to the device
-with ``device="cuda"`` and no card raises.  ``delta_decompress`` decodes
-on ``device`` (K1, then K2 with the base) when ``device_resident`` or the
-backend asks for it.
+device form.
+
+Decode takes the same knobs: the entropy stage decodes a blob's ``HUFF``
+chunks with K1 on ``device`` and the back half (un-group, inverse rotate,
+inverse XOR) runs as K2 (:mod:`.device_unplane`), each when its knob asks
+for the device, or under ``"auto"`` when ``device`` is a card that is
+present.  Leaves outside a stage's envelope take the host path for that
+stage, as the reference routes them; a stage routed to the device with
+``device="cuda"`` and no card raises, and a kernel that fails raises:
+nothing falls back to the host quietly.
 
 Blobs are byte-identical to the reference implementation's
 ``repro.core.zipnn`` for the same bytes and config, across ``backend`` ×
 ``entropy_backend`` × ``threads``; ``options.threads`` fans (plane, chunk)
-work items across a pool.  The file engine is not part of this package
-yet.
+work items across a pool.  Decoded bits are identical on every route.
 """
 
 from __future__ import annotations
@@ -56,11 +68,23 @@ from ..kernels.fused_unplane import ELEM_DTYPES
 from . import (
     bitlayout, codec, container, device_entropy, device_plane, device_unplane, engine,
 )
-from .options import CodecOptions, resolve_backend, resolve_options
+from .engine import (             # noqa: F401  (re-exported streaming API)
+    CompressWriter,
+    DecompressReader,
+    compress_file,
+    decompress_file,
+)
+from .options import (            # noqa: F401  (ZipNNSession re-exported)
+    CodecOptions,
+    ZipNNSession,
+    resolve_backend,
+    resolve_options,
+)
 
 __all__ = [
     "ZipNNConfig",
     "CodecOptions",
+    "ZipNNSession",
     "CompressedTensor",
     "ArrayFeed",
     "build_array_feed",
@@ -73,6 +97,12 @@ __all__ = [
     "delta_compress",
     "delta_compress_batched",
     "delta_decompress",
+    "compress_file",
+    "decompress_file",
+    "CompressWriter",
+    "DecompressReader",
+    "compressed_size",
+    "ratio",
 ]
 
 
@@ -93,8 +123,10 @@ class ZipNNConfig:
     # Blob bytes are identical for every setting.
     threads: int = 0
     # Plane stage: 'host' (numpy), 'device' (K3 where the layout and chunk
-    # size allow it) or 'auto' (device only for leaves on a CUDA device).
-    plane_backend: str = "host"
+    # size allow it) or 'auto' (device for leaves on a CUDA device, and for
+    # decode when the entry point's device is a card that is present).
+    # Bytes are equal on every backend: 'auto' chooses where work runs.
+    plane_backend: str = "auto"
     # Bit-pack stage: None follows plane_backend; otherwise as above, with
     # K7 for the canonical 'huffman' coder only.
     entropy_backend: Optional[str] = None
@@ -148,15 +180,17 @@ def _entropy_request(config: ZipNNConfig, opts: CodecOptions) -> str:
     return _plane_request(config, opts)
 
 
-def _plane_backend(config, opts, layout, params, leaf=None) -> str:
+def _plane_backend(config, opts, layout, params, leaf=None, device="cuda") -> str:
     return resolve_backend(
-        _plane_request(config, opts), device_plane.supports(layout, params), leaf, "plane"
+        _plane_request(config, opts), device_plane.supports(layout, params), leaf, device,
+        "plane",
     )
 
 
-def _entropy_backend(config, opts, layout, params, leaf=None) -> str:
+def _entropy_backend(config, opts, layout, params, leaf=None, device="cuda") -> str:
     return resolve_backend(
-        _entropy_request(config, opts), device_entropy.supports(layout, params), leaf, "entropy"
+        _entropy_request(config, opts), device_entropy.supports(layout, params), leaf, device,
+        "entropy",
     )
 
 
@@ -229,12 +263,14 @@ def compress_bytes(
     body, rem = (buf[: buf.size - tail], buf[buf.size - tail :]) if tail else (buf, None)
     pool = _pool(config, opts)
     params = config.plane_params(layout.itemsize, delta)
-    if body.size and _plane_backend(config, opts, layout, params) == "device":
+    if body.size and _plane_backend(config, opts, layout, params, device=device) == "device":
         planes, probes = device_plane.produce_planes(body, layout, params, device=device)
     else:
         planes = list(bitlayout.to_planes(body, layout, pool=pool))
         probes = [None] * len(planes)
-    entropy = _entropy_backend(config, opts, layout, params) if body.size else "host"
+    entropy = (
+        _entropy_backend(config, opts, layout, params, device=device) if body.size else "host"
+    )
     return _entropy_stage(
         planes, probes, layout, body.size, rem, params, pool, delta, entropy, device
     )
@@ -253,24 +289,88 @@ def _parse(blob: bytes):
     return meta, layout, payload_lists, (tail[4:] if tail[:4] == b"TAIL" else b"")
 
 
+def _decode_backend(config, opts, layout, device) -> str:
+    """The decode back half (K2's un-group, inverse rotate, inverse XOR):
+    'host' or 'device'.  A blob is host bytes, so ``"auto"`` keys off
+    ``device`` being a card that is present."""
+    return resolve_backend(
+        _plane_request(config, opts), device_unplane.supports(layout), None, device, "plane"
+    )
+
+
+def _decode_entropy(config, opts, chunk_bytes, device) -> str:
+    """The decode entropy stage (K1 on the HUFF chunks): same precedence
+    as the encode side — ``options.entropy_backend``, the config's, then
+    the plane request."""
+    return resolve_backend(
+        _entropy_request(config, opts), device_entropy.supports_decode(chunk_bytes),
+        None, device, "entropy",
+    )
+
+
+Planes = List[Union[np.ndarray, torch.Tensor]]
+
+
+def _entropy_decode(
+    blob: bytes, config: ZipNNConfig, opts: CodecOptions, pool, device: Any
+) -> Tuple[bitlayout.BitLayout, Planes, bytes]:
+    """Front half of every decode: parse the container and entropy-decode
+    every (plane, chunk) payload.  Returns ``(layout, planes, tail)``; the
+    planes are host uint8 arrays, or uint8 tensors on ``device`` when K1
+    decoded them (only when the stream has HUFF chunks and the entropy
+    stage resolves to the device)."""
+    meta, layout, payload_lists, tail = _parse(blob)
+    params = codec.CodecParams(chunk_bytes=meta.chunk_bytes, backend=config.backend)
+    huff = any(e.method == codec.Method.HUFF for pe in meta.entries for e in pe)
+    if huff and _decode_entropy(config, opts, meta.chunk_bytes, device) == "device":
+        planes: Planes = device_entropy.decode_planes(
+            meta.entries, payload_lists, meta.tables, params, pool=pool, device=device
+        )
+    else:
+        planes = [
+            codec.decompress_plane(
+                meta.entries[p], payload_lists[p], meta.tables[p], params, pool=pool
+            )
+            for p in range(meta.n_planes)
+        ]
+    return layout, planes, tail
+
+
+def _numel(plane) -> int:
+    return plane.numel() if isinstance(plane, torch.Tensor) else plane.size
+
+
+def _on_device(planes: Planes, dev: torch.device) -> List[torch.Tensor]:
+    """Planes as uint8 tensors on ``dev`` (host planes uploaded once)."""
+    return [
+        p.to(dev) if isinstance(p, torch.Tensor) else torch.from_numpy(p).to(dev)
+        for p in planes
+    ]
+
+
 def decompress_bytes(
     blob: bytes,
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    device: Any = "cuda",
 ) -> bytes:
-    """Decompress one ZNN1 blob back to its raw little-endian byte stream."""
+    """Decompress one ZNN1 blob back to its raw little-endian byte stream.
+
+    The HUFF chunks decode with K1 and the planes become elements with K2
+    on ``device`` when the knobs resolve there (see the module docstring);
+    only the elements come back.  Bytes are identical on every route.
+    """
     opts = resolve_options(options)
     pool = _pool(config, opts)
-    meta, layout, payload_lists, tail = _parse(blob)
-    params = codec.CodecParams(chunk_bytes=meta.chunk_bytes, backend=config.backend)
-    planes = [
-        codec.decompress_plane(
-            meta.entries[p], payload_lists[p], meta.tables[p], params, pool=pool
-        )
-        for p in range(meta.n_planes)
-    ]
-    body = bitlayout.from_planes(tuple(planes), layout, pool=pool)
+    layout, planes, tail = _entropy_decode(blob, config, opts, pool, device)
+    if planes and _numel(planes[0]) and _decode_backend(config, opts, layout, device) == "device":
+        dev = _util.resolve_device(device)
+        elems = device_unplane.consume_planes(_on_device(planes, dev), layout)
+        body = elems.cpu().view(torch.uint8).numpy()
+    else:
+        host = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p for p in planes]
+        body = bitlayout.from_planes(tuple(host), layout, pool=pool)
     return body.tobytes() + tail
 
 
@@ -406,7 +506,7 @@ def decompress_array(
         if out is not None:
             return out
         return decompress_array(ct, config, options=opts.replace(device_resident=False)).to(dev)
-    raw = decompress_bytes(ct.blob, config, options=opts)
+    raw = decompress_bytes(ct.blob, config, options=opts, device=device)
     return _from_raw(raw, ct.dtype, tuple(ct.shape))
 
 
@@ -553,12 +653,55 @@ def decompress_pytree(
     device: Any = "cuda",
 ) -> Any:
     """Decompress every leaf of a :func:`compress_pytree` manifest (CPU
-    tensors, or tensors on ``device`` with ``device_resident=True``)."""
+    tensors, or tensors on ``device`` with ``device_resident=True``).
+
+    Leaves whose decode resolves to the card (the knobs, or
+    ``device_resident``, which decodes both stages there) are grouped by
+    layout: each leaf's HUFF chunks decode with K1, then one K2 launch
+    (:func:`.device_unplane.consume_planes_batched`) rebuilds a window of
+    up to :data:`.device_plane.MAX_BATCH_BYTES` of leaves at once.  Every
+    leaf is bit-identical to decoding it alone; the rest (other layouts,
+    tails, empty leaves) decode one by one.
+    """
     opts = resolve_options(options, device_resident=device_resident)
-    arrays = [
-        decompress_array(ct, config, options=opts, device=device)
-        for ct in manifest["leaves"]
-    ]
+    cts: List[CompressedTensor] = manifest["leaves"]
+    arrays: List[Optional[torch.Tensor]] = [None] * len(cts)
+    route = opts.replace(backend="device", entropy_backend="device") if opts.device_resident else opts
+    groups: Dict[str, List[int]] = {}
+    for i, ct in enumerate(cts):
+        layout = bitlayout.LAYOUTS.get(ct.dtype)
+        if layout is not None and _decode_backend(config, route, layout, device) == "device":
+            groups.setdefault(ct.dtype, []).append(i)
+    if groups:
+        dev = _util.resolve_device(device)
+        pool = _pool(config, opts)
+    for name, idxs in groups.items():
+        layout = bitlayout.LAYOUTS[name]
+        window: List[Tuple[int, List[torch.Tensor]]] = []
+        acc = 0
+
+        def flush():
+            elems = device_unplane.consume_planes_batched([p for _, p in window], layout)
+            for (i, _), el in zip(window, elems):
+                out = el.view(_util.torch_dtype(cts[i].dtype)).reshape(cts[i].shape)
+                arrays[i] = out if opts.device_resident else out.cpu()
+            window.clear()
+
+        for i in idxs:
+            blob_layout, planes, tail = _entropy_decode(cts[i].blob, config, route, pool, dev)
+            if tail or blob_layout.name != layout.name or not planes or not _numel(planes[0]):
+                continue                    # edge cases decode one by one below
+            nb = _numel(planes[0]) * layout.itemsize
+            if window and acc + nb > device_plane.MAX_BATCH_BYTES:
+                flush()                     # split before the cap, as produce_planes does
+                acc = 0
+            window.append((i, _on_device(planes, dev)))
+            acc += nb
+        if window:
+            flush()
+    for i, ct in enumerate(cts):
+        if arrays[i] is None:
+            arrays[i] = decompress_array(ct, config, options=opts, device=device)
     return _util.tree_unflatten(manifest["treedef"], arrays)
 
 
@@ -662,11 +805,10 @@ def delta_decompress(
     opts = resolve_options(options, device_resident=device_resident)
     if tuple(ct.shape) != tuple(base.shape) or ct.dtype != _util.dtype_name(base.dtype):
         raise ValueError("delta requires matching shape/dtype")
-    requested = _plane_request(config, opts)
-    on_device = opts.device_resident or requested == "device" or (
-        requested == "auto" and (base.is_cuda or torch.cuda.is_available())
-    )
-    if on_device:
+    layout = bitlayout.LAYOUTS.get(ct.dtype)
+    if opts.device_resident or (
+        layout is not None and _decode_backend(config, opts, layout, device) == "device"
+    ):
         dev = _util.resolve_device(device)
         stream = _device_stream(ct, config)
         if stream is not None:
@@ -678,6 +820,26 @@ def delta_decompress(
             )
             out = elems.view(_util.torch_dtype(ct.dtype)).reshape(ct.shape)
             return out if opts.device_resident else out.cpu()
-    x = np.frombuffer(decompress_bytes(ct.blob, config, options=opts), dtype=np.uint8)
+    # the XOR happens on the host here, so the back half is pinned there;
+    # the entropy stage still follows the request
+    host = _host_planes(opts, _entropy_request(config, opts))
+    x = np.frombuffer(
+        decompress_bytes(ct.blob, config, options=host, device=device), dtype=np.uint8
+    )
     out = _from_raw(np.bitwise_xor(x, _raw_view(base)).tobytes(), ct.dtype, tuple(ct.shape))
     return out.to(_util.resolve_device(device)) if opts.device_resident else out
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+
+def compressed_size(manifest_or_ct: Any) -> int:
+    if isinstance(manifest_or_ct, CompressedTensor):
+        return manifest_or_ct.nbytes
+    return manifest_or_ct["comp_bytes"]
+
+
+def ratio(raw_bytes: int, comp_bytes: int) -> float:
+    """Compressed size in percent — lower is better (paper's metric)."""
+    return 100.0 * comp_bytes / max(raw_bytes, 1)

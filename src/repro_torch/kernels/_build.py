@@ -32,6 +32,7 @@ __all__ = [
     "build",
     "load",
     "check",
+    "count_launch",
     "build_log",
 ]
 
@@ -45,6 +46,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}        # nvcc/ptxas output per library built here
 
@@ -123,3 +125,11 @@ def check(name: str, code: int, what: str) -> None:
         msg: Optional[bytes] = getattr(_libs[name], f"{name}_error_string")(code)
         text = msg.decode() if msg else "unknown error"
         raise RuntimeError(f"{what}: CUDA error {code} ({text})")
+
+
+def count_launch(fn) -> None:
+    """Add one to a wrapper's ``launches``.  Frames of the file engine and
+    saves of the checkpoint manager launch from worker threads, and
+    ``+=`` on an attribute is not atomic."""
+    with _count_lock:
+        fn.launches += 1

@@ -157,7 +157,7 @@ def _launch(fn, c, syms, plane_ids, len_tables, code_tables, chunk_syms):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("bitpack", rc, f"{fn.__name__} launch")
-    fn.launches += 1
+    _build.count_launch(fn)
     return words, nbits
 
 

@@ -79,7 +79,7 @@ def _group(x: torch.Tensor, itemsize: int, fn) -> Tuple[torch.Tensor, ...]:
         _aligned([x.data_ptr(), *ptrs]), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("bytegroup", rc, f"{fn.__name__} launch")
-    fn.launches += 1
+    _build.count_launch(fn)
     return planes
 
 

@@ -99,7 +99,7 @@ def plane_producer(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("plane", rc, "plane_producer launch")
-    plane_producer.launches += 1
+    _build.count_launch(plane_producer)
     return planes, hists
 
 

@@ -95,7 +95,7 @@ def launch(fn, planes, base, itemsize, n) -> torch.Tensor:
         n, itemsize, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("unplane", rc, f"{fn.__name__} launch")
-    fn.launches += 1
+    _build.count_launch(fn)
     return out
 
 

@@ -76,7 +76,7 @@ def chunk_histogram(x: torch.Tensor, chunk_elems: int) -> torch.Tensor:
     if n_chunks == 0:
         return torch.zeros((0, 256), dtype=torch.int32, device=x.device)
     hist = _launch(x, chunk_elems, n_chunks, "chunk_histogram")
-    chunk_histogram.launches += 1
+    _build.count_launch(chunk_histogram)
     return hist
 
 
@@ -99,7 +99,7 @@ def byte_histogram(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return torch.zeros(256, dtype=torch.int32, device=x.device)
     hist = _launch(x, x.numel(), 1, "byte_histogram")
-    byte_histogram.launches += 1
+    _build.count_launch(byte_histogram)
     return hist.view(256)
 
 

@@ -183,7 +183,7 @@ def _serial_launch(fn, words, word_off, plane_ids, counts, out_off, luts, out,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("huffdecode", rc, f"{fn.__name__} launch")
-    fn.launches += 1
+    _build.count_launch(fn)
     return cursors
 
 
@@ -236,7 +236,7 @@ def huffdecode_chunks(
             out.data_ptr(), cursors.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("huffdecode", rc, "huffdecode_chunks (sync) launch")
-    huffdecode_chunks.launches += 1
+    _build.count_launch(huffdecode_chunks)
     return cursors
 
 

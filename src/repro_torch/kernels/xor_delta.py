@@ -73,7 +73,7 @@ def xor_elems(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.numel() == 0:
         return torch.empty_like(a)
     d = _launch(a, b, None, "xor_elems")
-    xor_elems.launches += 1
+    _build.count_launch(xor_elems)
     return d
 
 
@@ -97,7 +97,7 @@ def xor_delta_u32(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch
     if a.numel() == 0:
         return torch.empty_like(a), count
     d = _launch(a, b, count, "xor_delta_u32")
-    xor_delta_u32.launches += 1
+    _build.count_launch(xor_delta_u32)
     return d, count
 
 

@@ -13,14 +13,19 @@ its launches, blobs encoded on the card equal the host's byte for byte
 ring's logits equal the plain step's bit for bit on the card.
 """
 
+import io
+import json
+import os
 import zlib
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import _util
+from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core import codec, container, device_entropy, huffman, zipnn
+from repro_torch.core import codec, container, device_entropy, engine, huffman, zipnn
 from repro_torch.core.options import CodecOptions
 from repro_torch.kernels import (
     bitpack_encode_chunks,
@@ -55,6 +60,8 @@ from repro_torch.kernels import (
     xor_elems,
     xor_elems_plain,
 )
+from repro_torch.kernels import _build
+from repro_torch.kernels import bitpack as bitpack_mod
 from repro_torch.kernels import histogram as histogram_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.huffdecode import fuse_lut, pack_words, sync_offsets, sync_word_cap
@@ -319,7 +326,7 @@ def test_k7_kernel_matches_plain(cuda, chunk):
 def test_device_blobs_equal_host_blobs_on_card(cuda, dtype):
     cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 18, backend="huffman")
     leaf = (torch.randn((700, 300), generator=torch.Generator().manual_seed(5)) * 0.02).to(dtype)
-    host = zipnn.compress_array(leaf, cfg)
+    host = zipnn.compress_array(leaf, cfg, options=CodecOptions(backend="host"))
     reset_launch_counts()
     device_entropy.reset_transfer_stats()
     dev = zipnn.compress_array(leaf.to(cuda), cfg, options=CodecOptions(backend="device"),
@@ -337,7 +344,7 @@ def test_default_device_gathers_symbols_on_card(cuda):
     leaf = (torch.randn((700, 300), generator=torch.Generator().manual_seed(7)) * 0.02).to(
         torch.bfloat16
     )
-    host = zipnn.compress_array(leaf, cfg)
+    host = zipnn.compress_array(leaf, cfg, options=CodecOptions(backend="host"))
     opts = CodecOptions(backend="device")
     device_entropy.reset_transfer_stats()
     dev = zipnn.compress_array(leaf.to(cuda), cfg, options=opts)
@@ -354,7 +361,7 @@ def test_delta_round_trip_on_card(cuda):
     g = torch.Generator().manual_seed(6)
     base = (torch.randn((600, 512), generator=g) * 0.02).to(torch.bfloat16)
     new = (base.float() + 1e-4 * torch.randn((600, 512), generator=g)).to(torch.bfloat16)
-    host = zipnn.delta_compress(new, base, cfg)
+    host = zipnn.delta_compress(new, base, cfg, options=CodecOptions(backend="host"))
     dev = zipnn.delta_compress_batched([new.to(cuda)], [base.to(cuda)], cfg,
                                        options=CodecOptions(backend="device"), device=cuda)[0]
     assert dev.blob == host.blob
@@ -727,3 +734,179 @@ def test_k6_k9_in_a_cuda_graph(cuda):
         torch.cuda.synchronize()
         assert torch.equal(h, chunk_histogram_plain(x, 65_536))
         assert torch.equal(b, byte_histogram_plain(x))
+
+
+# ---------------------------------------------------------------------------
+# the file engine, the "auto" default and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+HOST = CodecOptions(backend="host")
+
+
+def _raw_stream(n, seed):
+    return _bf16((n,), seed, "cpu").view(torch.uint8).numpy().tobytes() + b"\x07"
+
+
+def test_compress_array_of_a_card_tensor_runs_k3_by_default(cuda):
+    cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 18, backend="huffman")
+    leaf = _bf16((600, 400), 31, "cpu")
+    reset_launch_counts()
+    ct = zipnn.compress_array(leaf.to(cuda), cfg)            # no backend: "auto"
+    assert launch_counts()["plane_producer"] == 1
+    assert launch_counts()["bitpack_encode_chunks"] == 1
+    assert ct.blob == zipnn.compress_array(leaf, cfg, options=HOST).blob
+    reset_launch_counts()
+    zipnn.compress_array(leaf, cfg)                          # a CPU tensor stays on the host
+    assert launch_counts()["plane_producer"] == 0
+
+
+def test_decompress_bytes_decodes_on_the_card_by_default(cuda):
+    cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 18, backend="huffman")
+    raw = _raw_stream(400_000, 32)
+    reset_launch_counts()
+    blob = zipnn.compress_bytes(raw, "bfloat16", cfg)        # host bytes, "auto": the card
+    assert launch_counts()["plane_producer"] == launch_counts()["bitpack_encode_chunks"] == 1
+    assert blob == zipnn.compress_bytes(raw, "bfloat16", cfg, options=HOST)
+    reset_launch_counts()
+    assert zipnn.decompress_bytes(blob, cfg) == raw          # no backend: "auto"
+    assert launch_counts()["huffdecode_serial"] == 1
+    assert launch_counts()["plane_consumer"] == 1
+    reset_launch_counts()
+    assert zipnn.decompress_bytes(blob, cfg, options=HOST) == raw
+    assert sum(launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("threads,depth", [(0, 1), (4, 3)])
+def test_file_on_card_equals_host_file(cuda, tmp_path, threads, depth):
+    cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 16, backend="huffman")
+    raw = _raw_stream(1_500_000, 33)
+    src = tmp_path / "w.raw"
+    src.write_bytes(raw)
+    engine.compress_file(str(src), str(tmp_path / "host.znns"), "bfloat16", cfg,
+                         window_bytes=1 << 20, options=CodecOptions(threads=threads, backend="host"))
+    reset_launch_counts()
+    opts = CodecOptions(threads=threads, backend="device")
+    engine.compress_file(str(src), str(tmp_path / "card.znns"), "bfloat16", cfg,
+                         window_bytes=1 << 20, options=opts, pipeline_depth=depth)
+    frames = len(list(engine.frame_records(str(tmp_path / "card.znns"))))
+    assert frames == 3
+    assert launch_counts()["plane_producer"] == launch_counts()["bitpack_encode_chunks"] == frames
+    assert (tmp_path / "card.znns").read_bytes() == (tmp_path / "host.znns").read_bytes()
+    reset_launch_counts()
+    out = io.BytesIO()
+    n = engine.decompress_file(str(tmp_path / "card.znns"), out, cfg,
+                               options=CodecOptions(threads=threads), pipeline_depth=depth)
+    assert n == len(raw) and out.getvalue() == raw
+    assert launch_counts()["huffdecode_serial"] == launch_counts()["plane_consumer"] == frames
+
+
+def test_file_on_card_by_default(cuda, tmp_path):
+    """No backend given: every frame is host bytes, so "auto" encodes it
+    with K3 and K7 on the present card, and the file is the host's."""
+    cfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 16, backend="huffman")
+    raw = _raw_stream(1_500_000, 34)
+    src = tmp_path / "w.raw"
+    src.write_bytes(raw)
+    engine.compress_file(str(src), str(tmp_path / "host.znns"), "bfloat16", cfg,
+                         window_bytes=1 << 20, options=HOST)
+    reset_launch_counts()
+    engine.compress_file(str(src), str(tmp_path / "auto.znns"), "bfloat16", cfg,
+                         window_bytes=1 << 20)
+    frames = len(list(engine.frame_records(str(tmp_path / "auto.znns"))))
+    assert frames == 3
+    assert launch_counts()["plane_producer"] == launch_counts()["bitpack_encode_chunks"] == frames
+    assert (tmp_path / "auto.znns").read_bytes() == (tmp_path / "host.znns").read_bytes()
+
+
+def test_stream_fixture_decodes_on_card(cuda):
+    with open(os.path.join(FIXTURES, "meta.json")) as f:
+        fx = next(x for x in json.load(f)["fixtures"] if x["kind"] == "stream")
+    with open(os.path.join(FIXTURES, fx["raw"]), "rb") as f:
+        raw = f.read()
+    reset_launch_counts()
+    out = io.BytesIO()
+    engine.decompress_file(os.path.join(FIXTURES, fx["blob"]), out,
+                           zipnn.ZipNNConfig(**fx["config"]), options=CodecOptions(backend="device"))
+    assert out.getvalue() == raw
+    assert launch_counts()["plane_consumer"] > 0             # zlib chunks: no K1
+
+
+def _card_state(step, cuda):
+    g = torch.Generator().manual_seed(40)
+    params = {"w": (torch.randn((3, 256, 192), generator=g) * 0.02).to(torch.bfloat16),
+              "b": (torch.randn(192, generator=g) * 0.02).to(torch.bfloat16)}
+    m = {k: torch.zeros(v.shape) for k, v in params.items()}
+    v = {k: torch.zeros(p.shape) for k, p in params.items()}
+    for t in range(step):
+        g = torch.Generator().manual_seed(50 + t)
+        for k in sorted(params):
+            grad = torch.randn(params[k].shape, generator=g) * 1e-2
+            m[k] = 0.9 * m[k] + 0.1 * grad
+            v[k] = 0.95 * v[k] + 0.05 * grad * grad
+            params[k] = (params[k].float() - 1e-4 * torch.randn(
+                params[k].shape, generator=g)).to(torch.bfloat16)
+    state = {"params": params, "opt": {"m": m, "v": v, "step": torch.tensor(step)}}
+    return _util.tree_map(lambda t: t.to(cuda), state)
+
+
+def _ckpt(path, backend, **kw):
+    return CheckpointManager(CheckpointConfig(
+        str(path), base_every=3, backend=backend,
+        zipnn=zipnn.ZipNNConfig(chunk_param_bytes=1 << 16, backend="huffman"), **kw))
+
+
+def test_checkpoint_on_card_equals_host_and_restores_on_card(cuda, tmp_path):
+    card, host = _ckpt(tmp_path / "card", "device"), _ckpt(tmp_path / "host", "host")
+    reset_launch_counts()
+    for s in range(4):
+        state = _card_state(s, cuda)
+        card.save(s, state)
+        host.save(s, state)
+        card.wait()
+        host.wait()
+    assert launch_counts()["plane_producer"] > 0 and launch_counts()["bitpack_encode_chunks"] > 0
+    held = card.held_bytes()
+    assert held["base_card"] > 0 and held["moments_card"] > 0
+    assert held["base_host"] == held["moments_host"] == 0
+    for s in range(4):
+        for name in ("manifest.json", "data.bin"):
+            assert (tmp_path / "card" / f"step_{s}" / name).read_bytes() == (
+                tmp_path / "host" / f"step_{s}" / name).read_bytes(), (s, name)
+    want = _card_state(2, cuda)
+    reset_launch_counts()
+    step, tree = card.restore(2, device_resident=True)
+    assert step == 2
+    assert launch_counts()["huffdecode_serial"] > 0 and launch_counts()["plane_consumer"] > 0
+    got, ref = _util.tree_flatten_with_keys(tree), _util.tree_flatten_with_keys(want)
+    assert [k for k, _ in got] == [k for k, _ in ref]
+    for (k, a), (_, b) in zip(got, ref):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, k
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), k
+
+
+def test_card_save_is_a_snapshot(cuda, tmp_path):
+    """The state updated in place on the caller's stream right after save()
+    does not reach what the save thread writes."""
+    mgr = _ckpt(tmp_path, "device")
+    state = _card_state(1, cuda)
+    want = {k: t.clone() for k, t in state["params"].items()}
+    torch.cuda._sleep(50_000_000)                  # the caller's stream is still busy
+    mgr.save(1, state)
+    for t in state["params"].values():
+        t.add_(1)
+    mgr.wait()
+    _, tree = mgr.restore(device_resident=True)
+    for k, t in want.items():
+        assert torch.equal(tree["params"][k].view(torch.int16), t.view(torch.int16))
+
+
+def test_card_save_whose_k7_fails_raises_and_publishes_nothing(cuda, tmp_path, monkeypatch):
+    _build.load("bitpack")
+    monkeypatch.setattr(bitpack_mod, "_launcher", lambda: (lambda *a: 1))
+    mgr = _ckpt(tmp_path, "device")
+    mgr.save(0, _card_state(0, cuda))
+    with pytest.raises(RuntimeError, match="bitpack_encode_chunks launch"):
+        mgr.wait()
+    assert mgr.latest_step() is None
+    assert not any(n.startswith("step_") for n in os.listdir(tmp_path))
