@@ -84,7 +84,27 @@ without printing the final line:
     must equal the last state bit for bit; the same saves of layers 0-1
     of the stacks and their moments on the card and on the host must write
     equal bytes;
-13. report: store sizes, build times, tokens/s, file and checkpoint times,
+13. granite_20b at its published widths (d_model 6144, 48 heads of 128,
+    one KV head, d_ff 24576, vocab 49,152, 32,768 learned positions,
+    layernorm, GELU, QKV bias), cut in depth to 4 of its 52 layers, random
+    bf16 weights drawn on the card (``models.model.init_params``, seed 0):
+    the store built on the card as in phase 5 (layer 0's 15 blobs against
+    a host build of that layer; every decoded leaf of every layer against
+    its param; K3 launches as the batch cap splits each layer, K7 and the
+    index pass once per Huffman leaf); the ring at ``tiles`` 1 and 4
+    against the plain step on B=4 requests of 16 + 16 tokens (logits
+    bit-identical, no payload upload, at most ``ring x tiles`` tile slots,
+    K1/K2 launches equal to the plan); a profiler trace of 4 ring steps at
+    each; the ring at ``tiles=4`` with a ``KVCacheStore`` at the reference's
+    defaults (hot window 256, blocks of 64) over a 384-token prompt and 32
+    greedy tokens against the plain step over the untiered cache (logits
+    bit-identical at all 416 steps, each evicted block's blob equal to the
+    host's encode of it, K3/K7 at eviction and K1's one-shot decode and K2
+    in the reassembly equal to the block plan); then K1 (sync decode, index
+    pass, one-shot decode), K2, K3 and K7 at the 6144x24576 ``w_in`` leaf
+    against their plain versions (K1's serial forms against the sync
+    decode: their plain version takes a step a symbol) and their bounds;
+14. report: store sizes, build times, tokens/s, file and checkpoint times,
     the ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -546,6 +566,23 @@ def phase_small_reference(dev):
         f"(limit {LOGIT_REL_TOL:g}; bf16-rounded control {control:.3e})")
 
 
+def check_same_run(label, plain_logits, plain_tokens, logits, tokens, n_steps, vocab):
+    """A served run against the plain step's on the same requests: every
+    step's logits finite, of shape (BATCH, 1, vocab) and bit-identical,
+    and the same greedy tokens."""
+    import torch
+
+    if len(logits) != n_steps or len(plain_logits) != n_steps:
+        raise AssertionError(f"{label}: wrong number of decode steps")
+    for t, (a, b) in enumerate(zip(plain_logits, logits)):
+        if a.shape != (BATCH, 1, vocab) or not torch.isfinite(a).all():
+            raise AssertionError(f"{label} step {t}: logits not finite or wrong shape")
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{label} step {t}: logits differ from the plain step")
+    if not torch.equal(tokens, plain_tokens):
+        raise AssertionError(f"{label}: tokens differ from the plain step")
+
+
 def phase_main(dev, cfg, zcfg):
     """Build ``cfg``'s store (repro_gpt_100m at full width) on the card,
     coded with ``zcfg``, against host-built blobs, and serve it through the
@@ -694,15 +731,8 @@ def phase_main(dev, cfg, zcfg):
     t_plain = time.perf_counter() - t0
 
     n_steps = PROMPT + STEPS
-    if len(ring_logits) != n_steps or len(plain_logits) != n_steps:
-        raise AssertionError("wrong number of decode steps")
-    for t, (a, b) in enumerate(zip(plain_logits, ring_logits)):
-        if a.shape != (BATCH, 1, cfg.vocab_size) or not torch.isfinite(a).all():
-            raise AssertionError(f"step {t}: logits not finite or wrong shape")
-        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            raise AssertionError(f"step {t}: ring logits differ from the plain step")
-    if not torch.equal(ring_tokens, plain_tokens):
-        raise AssertionError("ring tokens differ from the plain step")
+    check_same_run("ring", plain_logits, plain_tokens, ring_logits, ring_tokens, n_steps,
+                   cfg.vocab_size)
     per_step = {
         "huffdecode_chunks": sum(f.n_launches["huffdecode_chunks"] for l in feeds for f in l),
         "plane_consumer": sum(f.n_launches["plane_consumer"] for l in feeds for f in l),
@@ -758,12 +788,13 @@ def check_k1_leaves(store, dev):
     return n
 
 
-def profile_ring(dev, cfg, store, steps=6):
-    """One ``torch.profiler`` session over ``steps`` ring steps (B=BATCH),
-    each ended by a synchronize: per step the device time of the decode
-    (the side stream: K1, K2 and the splice copies) and of the compute
-    (every other stream), and the card's idle share (wall time the device
-    runs nothing).  The trace goes to build/ring_trace.json."""
+def profile_ring(dev, cfg, store, steps=6, tiles=1, name="ring_trace"):
+    """One ``torch.profiler`` run over ``steps`` ring steps (B=BATCH,
+    ``tiles`` decode jobs a layer), each ended by a synchronize: per step
+    the device time of the decode (the side stream: K1, K2 and the splice
+    copies) and of the compute (every other stream), and the card's idle
+    share (wall time the device runs nothing).  The trace goes to
+    build/<name>.json."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -773,7 +804,7 @@ def profile_ring(dev, cfg, store, steps=6):
     rng = np.random.default_rng(SEED + 14)
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (steps + 1, BATCH, 1)).astype(np.int32)).to(dev)
-    cstep = make_compressed_serve_step(cfg, store, ring=RING)
+    cstep = make_compressed_serve_step(cfg, store, ring=RING, tiles=tiles)
     state = init_decode_state(cfg, BATCH, steps + 1, start_pos=0, device=dev)
     _, state = cstep(state, toks[0])                        # warm
     torch.cuda.synchronize()
@@ -782,7 +813,7 @@ def profile_ring(dev, cfg, store, steps=6):
             with record_function(f"ring_step_{t}"):
                 _, state = cstep(state, toks[t + 1])
                 torch.cuda.synchronize()
-    path = os.path.join(ROOT, "build", "ring_trace.json")
+    path = os.path.join(ROOT, "build", f"{name}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -812,19 +843,34 @@ def profile_ring(dev, cfg, store, steps=6):
         rows.append({"step_ms": (hi - lo) / 1e3, "decode_ms": decode / 1e3, "k1_ms": k1 / 1e3,
                      "compute_ms": compute / 1e3, "idle": 1 - busy / (hi - lo)})
     mean = {k: sum(r[k] for r in rows) / steps for k in rows[0]}
-    log(f"ring trace over {steps} steps (B={BATCH}, profiler on, a synchronize ending each "
+    log(f"{name} over {steps} steps (B={BATCH}, tiles={tiles}, profiler on, a synchronize ending each "
         f"step): mean step {mean['step_ms']:.4f} ms, decode (side stream) "
         f"{mean['decode_ms']:.4f} ms of which K1 {mean['k1_ms']:.4f} ms, compute "
         f"{mean['compute_ms']:.4f} ms, card idle {mean['idle']:.4%} of the step")
-    log("ring trace per step: " + json.dumps(rows))
+    log(f"{name} per step: " + json.dumps(rows))
     return mean
 
 
-def has_huff(blob: bytes) -> bool:
+def huff_chunks(blob: bytes) -> int:
+    """The blob's Huffman-coded chunks, over all its planes."""
     from repro_torch.core import codec, container
 
     meta, _ = container.unpack_stream(blob)
-    return any(e.method == codec.Method.HUFF for pe in meta.entries for e in pe)
+    return sum(e.method == codec.Method.HUFF for pe in meta.entries for e in pe)
+
+
+def has_huff(blob: bytes) -> bool:
+    return huff_chunks(blob) > 0
+
+
+def k7_launches(blob: bytes) -> int:
+    """K7 launches that encoding ``blob``'s leaf on the card takes:
+    ``core.device_entropy.encode_planes`` packs at most
+    ``MAX_BATCH_BYTES // (2 * chunk bytes)`` Huffman chunks a launch."""
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+
+    per_launch = max(1, MAX_BATCH_BYTES // (2 * BF16_CHUNK))
+    return -(-huff_chunks(blob) // per_launch)
 
 
 def phase_delta(dev, zcfg, params):
@@ -1741,6 +1787,379 @@ def measure_ops(dev):
     return rows
 
 
+GRANITE_LAYERS = 4               # granite_20b cut in depth from 52; every width as published
+GRANITE_TILES = (1, 4)
+W_IN = (6144, 24576)             # granite_20b's widest leaf: one MLP weight
+KV_PROMPT, KV_GEN = 384, 32      # 416 positions: blocks evict after 320 and 384
+KV_HOT, KV_BLOCK = 256, 64       # the reference KVCacheStore's defaults
+
+
+def k3_windows(sizes, cap):
+    """K3 launches for one batch of same-layout leaves of ``sizes`` bytes:
+    ``core.device_plane.produce_planes_batched`` closes a window before a
+    leaf that would take it past ``cap``."""
+    n, acc = 1, 0
+    for nb in sizes:
+        if acc and acc + nb > cap:
+            n, acc = n + 1, 0
+        acc += nb
+    return n
+
+
+def kv_visible_blocks(n_pos, hot, block):
+    """Cold blocks per (key, layer) that the step at each position reads,
+    as ``KVCacheStore.append`` evicts them."""
+    out, cold = [], 0
+    for p in range(n_pos):
+        out.append(cold // block)
+        if p + 1 - cold >= hot + block:
+            cold += block
+    return out
+
+
+def phase_granite(dev, zcfg):
+    """granite_20b at its published widths, cut to GRANITE_LAYERS layers:
+    the store built on the card against the host's layer-0 blobs, every
+    decoded leaf against its param, the ring at each of GRANITE_TILES
+    against the plain step, a profiler trace, and the ring with the KV
+    tier over KV_PROMPT + KV_GEN positions against the plain step over
+    the untiered cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.configs import get_config
+    from repro_torch.core import device_entropy, device_plane, zipnn
+    from repro_torch.core.options import CodecOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_decode_state
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import (
+        CompressedParamStore, KVCacheStore, greedy_generate, make_compressed_serve_step,
+    )
+
+    cfg = dataclasses.replace(get_config("granite_20b"), n_layers=GRANITE_LAYERS)
+    L = cfg.n_layers
+    t_start = time.perf_counter()
+    params = init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    per_layer = sum(t[0].numel() for t in _util.tree_leaves(params["layers"]))
+    n_params = sum(t.numel() for t in _util.tree_leaves(params))
+    if per_layer != 379_121_920:
+        raise AssertionError(f"granite_20b layer has {per_layer} parameters")
+    log(f"granite_20b x{L} layers: {n_params} bf16 parameters ({2 * n_params} B plain), "
+        f"{per_layer} a layer, {len(_util.tree_leaves(params['layers']))} leaves a layer")
+
+    device_entropy.reset_transfer_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = CompressedParamStore.from_params(
+        params, zcfg, options=CodecOptions(threads=-1, backend="device"), payload_feed=True,
+    )
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build = launch_counts()
+    if device_entropy.transfer_stats()["symbol_uploads"]:
+        raise AssertionError("the granite build uploaded HUFF symbols")
+    manifests = [store.manifest("layers", i) for i in range(L)]
+    huff = [[has_huff(ct.blob) for ct in m["leaves"]] for m in manifests]
+    sizes = [int(np.prod(ct.shape)) * 2 for ct in manifests[0]["leaves"]]
+    build_plan = {"plane_producer": L * k3_windows(sizes, device_plane.MAX_BATCH_BYTES),
+                  "bitpack_encode_chunks": sum(k7_launches(ct.blob) for m in manifests
+                                               for ct in m["leaves"]),
+                  "huffdecode_index": sum(map(sum, huff))}
+    for name, n in build_plan.items():
+        if build[name] != n:
+            raise AssertionError(f"granite build: {name} {build[name]} launches, plan {n}")
+
+    t0 = time.perf_counter()
+    host = CompressedParamStore.from_params(
+        {"layers": _util.tree_map(lambda a: a[:1], params["layers"])}, zcfg,
+        options=CodecOptions(threads=-1, backend="host"), device=dev,
+    )
+    t_host = time.perf_counter() - t0
+    want = [ct.blob for ct in host.manifest("layers", 0)["leaves"]]
+    if [ct.blob for ct in manifests[0]["leaves"]] != want:
+        raise AssertionError("granite layer 0: blobs built on the card differ from the host's")
+    del host
+    for i in range(L):
+        got = _util.tree_leaves(store.decode_layer("layers", i))
+        ref = _util.tree_leaves(_util.tree_map(lambda a, i=i: a[i], params["layers"]))
+        store.release("layers", i)
+        if len(got) != len(ref) or not all(
+                torch.equal(g.view(torch.int16), w.view(torch.int16)) for g, w in zip(got, ref)):
+            raise AssertionError(f"granite layer {i} does not decode bit-exactly")
+    store.reset_peak()
+    layer_raw = store.raw_bytes // L
+    layer_payload = store.device_payload_bytes / L
+    sizes_out = {
+        "ratio_pct": store.ratio_pct, "comp_bytes": store.comp_bytes,
+        "device_payload_bytes": store.device_payload_bytes, "raw_bytes": store.raw_bytes,
+        "static_bytes": store.static_bytes, "footprint_bytes": store.footprint_bytes(RING),
+        "plain_bytes": store.raw_bytes + store.static_bytes,
+        # the same store at the published 52 layers, from this run's per-layer bytes
+        "footprint_bytes_52": int(52 * layer_payload + store.static_bytes
+                                  + RING * store.max_layer_raw_bytes),
+        "plain_bytes_52": 52 * layer_raw + store.static_bytes,
+    }
+    log(f"granite store on the card in {t_build:.3f} s ({store.raw_bytes / 1e6 / t_build:.1f} "
+        f"MB/s of stacks, encode + feed upload + index pass); build launches {build_plan}; "
+        f"layer 0's {len(want)} blobs equal the host's (host build of layer 0: {t_host:.3f} s); "
+        f"every decoded leaf of all {L} layers equals its param")
+    log(f"granite store: {sizes_out}")
+
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)).to(dev)
+    s = init_decode_state(cfg, BATCH, PROMPT + STEPS, start_pos=0, device=dev)
+    decode_step(cfg, params, s, prompt[:, :1])                # warm the plain path
+    torch.cuda.synchronize()
+    plain_logits: list = []
+    t0 = time.perf_counter()
+    plain_tokens, _ = greedy_generate(cfg, params, prompt, STEPS, logits_out=plain_logits)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    n_steps = PROMPT + STEPS
+    feeds = store.feeds("layers")
+    per_step = {
+        "huffdecode_chunks": sum(f.n_launches["huffdecode_chunks"] for l in feeds for f in l if f),
+        "plane_consumer": sum(f.n_launches["plane_consumer"] for l in feeds for f in l if f),
+    }
+    out = {"build_s": t_build, "host_layer0_s": t_host, "store": sizes_out,
+           "build_launches": build_plan, "plain_tokens_per_s": BATCH * n_steps / t_plain,
+           "plain_s": t_plain, "ring": {}, "launches": dict(build)}
+    for tiles in GRANITE_TILES:
+        cstep = make_compressed_serve_step(cfg, store, ring=RING, tiles=tiles)
+        store.reset_peak()
+        device_entropy.reset_transfer_stats()
+        reset_launch_counts()
+        logits: list = []
+        t0 = time.perf_counter()
+        tokens, _ = greedy_generate(cfg, None, prompt, STEPS, serve_step=cstep, logits_out=logits)
+        torch.cuda.synchronize()
+        t_ring = time.perf_counter() - t0
+        launches = launch_counts()
+        uploads = device_entropy.transfer_stats()["payload_uploads"]
+        check_same_run(f"granite ring tiles={tiles}", plain_logits, plain_tokens, logits,
+                       tokens, n_steps, cfg.vocab_size)
+        for name, n in per_step.items():
+            if launches[name] != n * n_steps:
+                raise AssertionError(f"granite tiles={tiles} {name}: {launches[name]} launches, "
+                                     f"plan {n * n_steps}")
+        if launches["huffdecode_serial"] or launches["huffdecode_index"] or uploads:
+            raise AssertionError(f"granite ring: serial K1 or uploads: {launches}, {uploads}")
+        if store.peak_resident > RING * tiles:
+            raise AssertionError(f"granite peak residency {store.peak_resident} > "
+                                 f"{RING} x {tiles}")
+        out["ring"][tiles] = {"tokens_per_s": BATCH * n_steps / t_ring, "s": t_ring,
+                              "peak_resident": store.peak_resident}
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        log(f"granite ring tiles={tiles}: logits bit-identical at all {n_steps} steps, peak "
+            f"resident {store.peak_resident} (at most {RING * tiles}), payload uploads 0; "
+            f"{BATCH * n_steps / t_ring:.2f} tokens/s ({t_ring:.3f} s) against plain "
+            f"{BATCH * n_steps / t_plain:.2f} ({t_plain:.3f} s)")
+    out["per_step"] = per_step
+    out["trace"] = {t: profile_ring(dev, cfg, store, steps=4, tiles=t,
+                                    name=f"granite_ring_trace_t{t}") for t in GRANITE_TILES}
+
+    # The KV tier on the ring, tiles=4: the prompt through the tiered step
+    n_pos = KV_PROMPT + KV_GEN
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (BATCH, KV_PROMPT)).astype(np.int32)).to(dev)
+    plain_logits = []
+    t0 = time.perf_counter()
+    plain_tokens, plain_state = greedy_generate(cfg, params, prompt, KV_GEN,
+                                                logits_out=plain_logits)
+    torch.cuda.synchronize()
+    t_plain_kv = time.perf_counter() - t0
+    kv = KVCacheStore(init_decode_state(cfg, BATCH, n_pos, start_pos=0, device=dev),
+                      hot_window=KV_HOT, block_len=KV_BLOCK, config=zcfg)
+    cstep = make_compressed_serve_step(cfg, store, ring=RING, tiles=4, kv_store=kv)
+    store.reset_peak()
+    device_entropy.reset_transfer_stats()
+    reset_launch_counts()
+    logits = []
+    t0 = time.perf_counter()
+    tokens, _ = greedy_generate(cfg, None, prompt, KV_GEN, serve_step=cstep, logits_out=logits)
+    torch.cuda.synchronize()
+    t_kv = time.perf_counter() - t0
+    launches = launch_counts()
+    uploads = device_entropy.transfer_stats()
+    check_same_run("granite KV tier", plain_logits, plain_tokens, logits, tokens, n_pos,
+                   cfg.vocab_size)
+    visible = kv_visible_blocks(n_pos + 1, KV_HOT, KV_BLOCK)    # [n_pos]: after the last step
+    if kv.n_cold_blocks < 1 or kv.n_cold_blocks != visible.pop():
+        raise AssertionError(f"granite KV tier: {kv.n_cold_blocks} cold blocks")
+    kv_huff, kv_k7 = {}, 0
+    for key in kv.keys:
+        for j in range(L):
+            for b, ct in enumerate(kv.cold_blocks(key, j)):
+                block = plain_state[key][j][:, b * KV_BLOCK:(b + 1) * KV_BLOCK].contiguous()
+                host_blob = zipnn.compress_array(
+                    block.cpu(), zcfg, options=CodecOptions(backend="host")).blob
+                if ct.blob != host_blob:
+                    raise AssertionError(f"granite KV block {key} {j} {b}: the card's blob "
+                                         "differs from the host's")
+                kv_huff[(key, j, b)] = has_huff(ct.blob)
+                kv_k7 += k7_launches(ct.blob)
+    n_blocks = len(kv_huff)
+    kv_plan = {
+        "plane_producer": n_blocks,
+        "bitpack_encode_chunks": kv_k7,
+        "huffdecode_serial": sum(kv_huff[(k, j, b)] for v in visible for k in kv.keys
+                                 for j in range(L) for b in range(v)),
+        "plane_consumer": per_step["plane_consumer"] * n_pos + len(kv.keys) * L * sum(visible),
+        "huffdecode_chunks": per_step["huffdecode_chunks"] * n_pos,
+        "huffdecode_index": 0,
+    }
+    for name, n in kv_plan.items():
+        if launches[name] != n:
+            raise AssertionError(f"granite KV tier: {name} {launches[name]} launches, plan {n}")
+    if store.peak_resident > RING * 4 or kv.peak_hot_positions > KV_HOT + KV_BLOCK:
+        raise AssertionError(f"granite KV tier residency: {store.peak_resident} tile slots, "
+                             f"{kv.peak_hot_positions} hot positions")
+    for k, v in launches.items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    out["kv"] = {
+        "positions": n_pos, "tokens_per_s": BATCH * n_pos / t_kv, "s": t_kv,
+        "plain_tokens_per_s": BATCH * n_pos / t_plain_kv, "plain_s": t_plain_kv,
+        "cold_blocks": kv.n_cold_blocks, "cold_comp_bytes": kv.cold_comp_bytes,
+        "cold_raw_bytes": kv.cold_raw_bytes, "hot_bytes": kv.hot_bytes,
+        "full_cache_bytes": kv.full_cache_bytes, "resident_bytes": kv.resident_bytes(1),
+        "peak_hot_positions": kv.peak_hot_positions,
+        "peak_inflight_blocks": kv.peak_inflight_blocks, "launches": kv_plan,
+        "payload_uploads": uploads["payload_uploads"],
+    }
+    log(f"granite KV tier (hot {KV_HOT}, block {KV_BLOCK}, tiles=4): logits bit-identical at "
+        f"all {n_pos} steps; {kv.n_cold_blocks} cold blocks a (key, layer), each equal to the "
+        f"host's encode; launches equal the plan {kv_plan}; "
+        f"{BATCH * n_pos / t_kv:.2f} tokens/s ({t_kv:.3f} s) against plain "
+        f"{BATCH * n_pos / t_plain_kv:.2f} ({t_plain_kv:.3f} s)")
+    log(f"granite KV tier bytes: {out['kv']}")
+    out["kernels"] = measure_granite_kernels(dev, store, params)
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"granite phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def measure_granite_kernels(dev, store, params):
+    """K1 (sync decode, index pass, one-shot decode), K2, K3 and K7 at
+    granite_20b's w_in leaf (6144x24576, 1,152 plane chunks), each beside
+    its bound and its plain version (K1's serial forms have none here: the
+    plain serial decode takes one step a symbol of a chunk, ~60 s a
+    launch)."""
+    import torch
+
+    from repro_torch.kernels import (
+        bitpack_encode_chunks, bitpack_encode_chunks_plain, huffdecode_chunks,
+        huffdecode_chunks_plain, huffdecode_index, huffdecode_serial, plane_consumer,
+        plane_consumer_plain, plane_producer, plane_producer_plain,
+    )
+    from repro_torch.core import huffman
+
+    shapes = [tuple(ct.shape) for ct in store.manifest("layers", 0)["leaves"]]
+    feed = store.feeds("layers")[0][shapes.index(W_IN)]
+    args = feed.launch_args()
+    n_out = args.pop("out_bytes")
+    sync, sync_off = args.pop("sync"), args.pop("sync_off")
+    out, out_p, out_i, out_s = (torch.zeros(n_out, dtype=torch.uint8, device=dev)
+                                for _ in range(4))
+    run = lambda: huffdecode_chunks(**args, out=out, sync=sync, sync_off=sync_off)  # noqa: E731
+    index = lambda: huffdecode_index(**args, out=out_i, sync_off=sync_off)  # noqa: E731
+    serial = lambda: huffdecode_serial(**args, out=out_s)  # noqa: E731
+    ms = device_ms(run, 10)
+    kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 5)
+    plain = []
+    plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(
+        **args, out=out_p, sync=sync, sync_off=sync_off)), 1)
+    index_ms = device_ms(index, 2)
+    index_kernel_ms = profiled_ms(index, r"huffdecode_kernel", 1)
+    serial_ms = device_ms(serial, 2)
+    serial_kernel_ms = profiled_ms(serial, r"huffdecode_kernel", 1)
+    cur = run()
+    cur_i, sync_i = index()
+    cur_s = serial()
+    torch.cuda.synchronize()
+    if not (torch.equal(out, out_p) and torch.equal(out, out_i) and torch.equal(out, out_s)
+            and torch.equal(cur, plain[0]) and torch.equal(cur, cur_i)
+            and torch.equal(cur, cur_s) and torch.equal(sync_i, sync)):
+        raise AssertionError("K1 disagrees at the granite w_in leaf")
+    symbols = int(args["counts"].sum())
+    inputs = sum(t.numel() * t.element_size() for t in args.values())
+    sync_bytes = sync.numel() * 4 + sync_off.numel() * 8
+    k1_bytes = inputs + sync_bytes + symbols + 4 * cur.numel()
+    b, by = bound_ms(k1_bytes, K1_OPS_PER_SYMBOL * symbols)
+    rows = {"K1": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                   "kernel_ms_profiler": kernel_ms, "chunks": int(args["counts"].numel()),
+                   "symbols": symbols, "bytes": k1_bytes,
+                   "index_pass": {"ms": index_ms, "kernel_ms_profiler": index_kernel_ms,
+                                  "plain_ms": None},
+                   "one_shot": {"ms": serial_ms, "kernel_ms_profiler": serial_kernel_ms,
+                                "plain_ms": None}}}
+    log(f"K1 at granite w_in {W_IN}: {rows['K1']['chunks']} chunks, {symbols} symbols; sync "
+        f"decode {ms:.5f} ms (device time alone {kernel_ms}), plain {plain_ms:.2f} ms, bound "
+        f"{b:.6f} ms ({by}, {k1_bytes} B); index pass {index_ms:.4f} ms (device time alone "
+        f"{index_kernel_ms}); one-shot decode {serial_ms:.4f} ms (device time alone "
+        f"{serial_kernel_ms})")
+
+    x = params["layers"]["mlp"]["w_in"][0].reshape(-1).view(torch.int16)
+    n = x.numel()
+    k3 = lambda: plane_producer(x, itemsize=2, chunk_elems=BF16_CHUNK)  # noqa: E731
+    k3_ms = device_ms(k3, 10)
+    k3_kernel_ms = profiled_ms(k3, r"(?<!un)plane_kernel", 5)
+    k3_plain_ms = device_ms(lambda: plane_producer_plain(x, itemsize=2, chunk_elems=BF16_CHUNK), 1)
+    planes, hists = k3()
+    pp, hp = plane_producer_plain(x, itemsize=2, chunk_elems=BF16_CHUNK)
+    if not (torch.equal(planes, pp) and torch.equal(hists, hp)):
+        raise AssertionError("K3 disagrees at the granite w_in leaf")
+    del pp, hp
+    k3_bytes = 2 * n + 2 * n + (n // BF16_CHUNK) * 2 * 256 * 4
+    b, by = bound_ms(k3_bytes, K3_OPS_PER_ELEMENT[2] * n)
+    rows["K3"] = {"ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": b, "bound_by": by,
+                  "kernel_ms_profiler": k3_kernel_ms, "bytes": k3_bytes}
+
+    pl = [planes[0].contiguous(), planes[1].contiguous()]
+    k2 = lambda: plane_consumer(pl, itemsize=2)  # noqa: E731
+    k2_ms = device_ms(k2, 10)
+    k2_kernel_ms = profiled_ms(k2, r"unplane_kernel", 5)
+    k2_plain_ms = device_ms(lambda: plane_consumer_plain(pl, itemsize=2), 1)
+    if not (torch.equal(k2(), x) and torch.equal(plane_consumer_plain(pl, itemsize=2), x)):
+        raise AssertionError("K2 disagrees at the granite w_in leaf")
+    b, by = bound_ms(4 * n, K2_OPS_PER_ELEMENT * n)
+    rows["K2"] = {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": b, "bound_by": by,
+                  "kernel_ms_profiler": k2_kernel_ms, "bytes": 4 * n}
+
+    exp = pl[0]
+    lens = huffman.code_lengths(torch.bincount(exp, minlength=256).cpu().numpy() + 1)
+    tabs = [torch.from_numpy(np.asarray(t, dtype=np.int32)[None]).to(dev)
+            for t in (lens, huffman.canonical_codes(lens))]
+    c = n // BF16_CHUNK
+    pids = torch.zeros(c, dtype=torch.int32, device=dev)
+    k7 = lambda: bitpack_encode_chunks(exp, pids, *tabs, chunk_syms=BF16_CHUNK)  # noqa: E731
+    k7_ms = device_ms(k7, 10)
+    k7_kernel_ms = profiled_ms(k7, r"bitpack_kernel", 5)
+    k7_plain_ms = device_ms(
+        lambda: bitpack_encode_chunks_plain(exp, pids, *tabs, chunk_syms=BF16_CHUNK), 1)
+    words, nbits = k7()
+    wp, np_ = bitpack_encode_chunks_plain(exp, pids, *tabs, chunk_syms=BF16_CHUNK)
+    if not (torch.equal(words, wp) and torch.equal(nbits, np_)) or int(nbits.min()) <= 0:
+        raise AssertionError("K7 disagrees at the granite w_in leaf")
+    del wp, np_
+    k7_bytes = n + words.numel() * 4 + 4 * c + 4 * c + 2 * 4 * 256
+    b, by = bound_ms(k7_bytes, K7_OPS_PER_SYMBOL * n)
+    rows["K7"] = {"ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": b, "bound_by": by,
+                  "kernel_ms_profiler": k7_kernel_ms, "bytes": k7_bytes, "chunks": c,
+                  "segments": c * (BF16_CHUNK // 8192), "bits": int(nbits.sum())}
+    for k in ("K2", "K3", "K7"):
+        r = rows[k]
+        log(f"{k} at granite w_in {W_IN}: kernel {r['ms']:.5f} ms (device time alone "
+            f"{r['kernel_ms_profiler']}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} B)")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1786,6 +2205,10 @@ def main() -> int:
     # this slice's paths: the ZNS1 file engine and checkpoints, full width
     files = phase_file(dev, zcfg, params)
     ckpt = phase_checkpoint(dev, zcfg, params)
+    del params
+    # this slice's path: granite_20b at its published widths, tiles, KV tier
+    granite = phase_granite(dev, zcfg)
+    gk, gl = granite["kernels"], granite["launches"]
     reset_launch_counts()
 
     # Every row's ms is device_ms (L2 evicted before each call) and its
@@ -1809,7 +2232,10 @@ def main() -> int:
          # the one-shot serial decode: every card file frame and restore
          "one_shot": {"launches_file": files["launches"]["huffdecode_serial"],
                       "launches_checkpoint_restore": ckpt["restore_launches"]["huffdecode_serial"],
-                      "ms": k1["serial_ms"], "kernel_ms_profiler": k1["serial_kernel_ms_profiler"]}},
+                      "ms": k1["serial_ms"], "kernel_ms_profiler": k1["serial_kernel_ms_profiler"]},
+         "granite": dict(gk["K1"], launches=gl["huffdecode_chunks"], shape=W_IN,
+                         index_pass=dict(gk["K1"]["index_pass"], launches=gl["huffdecode_index"]),
+                         one_shot=dict(gk["K1"]["one_shot"], launches=gl["huffdecode_serial"]))},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
@@ -1818,7 +2244,8 @@ def main() -> int:
          "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2], "bound_by": k2[3],
          "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4],
          "launches_file": files["launches"]["plane_consumer"],
-         "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"]},
+         "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"],
+         "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN)},
         {"name": "plane_producer", "route": "cuda",
          "source": "src/repro_torch/csrc/plane.cu",
          "replaces": "src/repro/kernels/fused_plane.py:52",
@@ -1828,7 +2255,8 @@ def main() -> int:
          "bound_by": k3["bound_by"], "library_ms": None, "library": no_library,
          "kernel_ms_profiler": k3["kernel_ms_profiler"], "variants": k3_rows,
          "launches_file": files["launches"]["plane_producer"],
-         "launches_checkpoint_save": ckpt["save_launches"]["plane_producer"]},
+         "launches_checkpoint_save": ckpt["save_launches"]["plane_producer"],
+         "granite": dict(gk["K3"], launches=gl["plane_producer"], shape=W_IN)},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",
@@ -1837,7 +2265,8 @@ def main() -> int:
          "ms": k7[0], "plain_ms": k7[1], "bound_ms": k7[2], "bound_by": k7[3],
          "library_ms": None, "library": no_library, "kernel_ms_profiler": k7[4],
          "launches_file": files["launches"]["bitpack_encode_chunks"],
-         "launches_checkpoint_save": ckpt["save_launches"]["bitpack_encode_chunks"]},
+         "launches_checkpoint_save": ckpt["save_launches"]["bitpack_encode_chunks"],
+         "granite": dict(gk["K7"], launches=gl["bitpack_encode_chunks"], shape=W_IN)},
     ]
     # The ops kernels: launches are those of the ops path over the 108
     # leaves; times from measure_ops (K4/K11 list both widths, K5 both

@@ -17,6 +17,7 @@ from . import attention, blocks, layers
 
 __all__ = [
     "param_shapes",
+    "init_params",
     "cache_len",
     "init_decode_state",
     "decode_step",
@@ -80,6 +81,23 @@ def param_shapes(cfg) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         shapes["lm_head"] = {"table": (cfg.vocab_size, d)}
     return shapes
+
+
+def init_params(cfg, seed: int = 0, *, device: Any = "cuda") -> Dict[str, Any]:
+    """Random bf16 params in :func:`param_shapes`' tree: every leaf
+    ``standard_normal * 0.02``, drawn on ``device`` by a generator seeded
+    with ``seed``, leaf by leaf in sorted-key order.  For serving without a
+    checkpoint; the draw differs from the reference's ``Model.init``."""
+    dev = _util.resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(node):
+        if isinstance(node, dict):               # shape tuples are the leaves
+            return {k: draw(node[k]) for k in sorted(node)}
+        x = torch.randn(node, generator=gen, dtype=torch.float32, device=dev)
+        return (x * 0.02).to(cfg.dtype)
+
+    return draw(param_shapes(cfg))
 
 
 def cache_len(cfg, seq_len: int) -> int:

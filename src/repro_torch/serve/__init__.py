@@ -1,11 +1,20 @@
-"""Serving: the compressed-resident param store and the decode steps."""
+"""Serving: the compressed-resident param store, the KV tier and the
+decode steps."""
 
 from .compressed import CompressedParamStore
-from .step import greedy_generate, make_compressed_serve_step, make_serve_step
+from .kvcache import KVCacheStore
+from .step import (
+    greedy_generate,
+    make_compressed_serve_step,
+    make_kv_tiered_serve_step,
+    make_serve_step,
+)
 
 __all__ = [
     "CompressedParamStore",
+    "KVCacheStore",
     "greedy_generate",
     "make_compressed_serve_step",
+    "make_kv_tiered_serve_step",
     "make_serve_step",
 ]

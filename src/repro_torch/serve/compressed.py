@@ -21,6 +21,8 @@ ring scheduler (:func:`repro_torch.serve.step.make_compressed_serve_step`)
 drives decode/release; the store keeps the residency accounting:
 ``resident_count`` / ``peak_resident`` count decoded-layer slots claimed
 now / ever, which the "at most ``ring`` decoded layers" claim checks.
+``decode_layer_tile`` / ``release_tile`` decode and release a layer in
+``tiles`` contiguous groups of leaves, and then count tile slots.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import threading
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from .. import _util
-from ..core import zipnn
+from ..core import codec, zipnn
 from ..core.options import CodecOptions, resolve_options
 
 __all__ = ["DEFAULT_STACK_KEYS", "CompressedParamStore"]
@@ -123,22 +125,27 @@ class CompressedParamStore:
 
     # -- decode / residency ------------------------------------------------
 
+    def _decode_leaf(self, key: str, i: int, j: int) -> Any:
+        """Leaf ``j`` of layer ``i`` on the store's device: from its feed
+        where one covers it, by a per-call decode otherwise; bit-identical
+        either way."""
+        feeds = self._feeds.get(key)
+        feed = feeds[i][j] if feeds is not None else None
+        if feed is not None:
+            return feed.decode()
+        return zipnn.decompress_array(
+            self._stacks[key][i]["leaves"][j], self._config, options=self._options,
+            device_resident=True, device=self.device,
+        )
+
     def decode_layer(self, key: str, i: int) -> PyTree:
         """Decode layer ``i`` of stack ``key`` into a ring slot on the
         store's device (feed path where a feed covers a leaf, per-call
         decode otherwise; bit-identical either way).  Marks the slot
         resident — the caller owns it until :meth:`release`."""
         manifest = self._stacks[key][i]
-        feeds = self._feeds.get(key)
-        if feeds is not None:
-            arrays = [
-                feed.decode() if feed is not None
-                else zipnn.decompress_array(
-                    ct, self._config, options=self._options,
-                    device_resident=True, device=self.device,
-                )
-                for feed, ct in zip(feeds[i], manifest["leaves"])
-            ]
+        if key in self._feeds:
+            arrays = [self._decode_leaf(key, i, j) for j in range(len(manifest["leaves"]))]
             tree = _util.tree_unflatten(manifest["treedef"], arrays)
         else:
             tree = zipnn.decompress_pytree(
@@ -155,6 +162,41 @@ class CompressedParamStore:
         buffers themselves are freed once the layer's compute is done)."""
         with self._lock:
             self._resident.discard((key, i))
+
+    # -- per-tile decode ---------------------------------------------------
+
+    def n_leaves(self, key: str) -> int:
+        """Leaves per layer of stack ``key`` (the same in every layer)."""
+        return len(self._stacks[key][0]["leaves"])
+
+    def tile_leaf_ids(self, key: str, t: int, tiles: int) -> range:
+        """Leaf indices of tile ``t`` when a layer splits into ``tiles``
+        contiguous groups of leaves (``codec.split_ids`` geometry: trailing
+        tiles are empty when a layer has fewer leaves than tiles)."""
+        ranges = codec.split_ids(self.n_leaves(key), tiles)
+        return ranges[t] if t < len(ranges) else range(0)
+
+    def decode_layer_tile(self, key: str, i: int, t: int, tiles: int) -> Dict[int, Any]:
+        """Decode tile ``t`` of layer ``i``: ``{leaf_index: tensor}`` for
+        the tile's leaves (empty for a trailing empty tile).  Marks one
+        *tile slot* resident, so ``peak_resident`` counts tiles: a ring of
+        ``ring`` layers split ``tiles`` ways holds at most ``ring × tiles``
+        tile slots.  The layer put back together (:meth:`layer_unflatten`)
+        is leaf for leaf :meth:`decode_layer`'s."""
+        arrays = {j: self._decode_leaf(key, i, j) for j in self.tile_leaf_ids(key, t, tiles)}
+        with self._lock:
+            self._resident.add((key, i, t, tiles))
+            self.peak_resident = max(self.peak_resident, len(self._resident))
+        return arrays
+
+    def release_tile(self, key: str, i: int, t: int, tiles: int) -> None:
+        """Tile twin of :meth:`release`."""
+        with self._lock:
+            self._resident.discard((key, i, t, tiles))
+
+    def layer_unflatten(self, key: str, i: int, arrays: List[Any]) -> PyTree:
+        """A layer's tree from its decoded leaves, in leaf order."""
+        return _util.tree_unflatten(self._stacks[key][i]["treedef"], arrays)
 
     @property
     def resident_count(self) -> int:

@@ -1,5 +1,6 @@
-"""Serving: the plain decode step, the compressed-resident ring, greedy
-generation.
+"""Serving: the plain decode step, the KV-tiered step, the
+compressed-resident ring (whole layers or tiles, with or without the KV
+tier), greedy generation.
 
 :func:`make_compressed_serve_step` reproduces ``decode_step`` outside its
 layer loop: the same front (embed), the same block function per layer,
@@ -13,7 +14,7 @@ just ahead of compute.
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -21,7 +22,12 @@ from .. import _util
 from ..models import blocks
 from ..models.model import decode_front, decode_step, decode_tail, _slot_write
 
-__all__ = ["make_serve_step", "make_compressed_serve_step", "greedy_generate"]
+__all__ = [
+    "make_serve_step",
+    "make_kv_tiered_serve_step",
+    "make_compressed_serve_step",
+    "greedy_generate",
+]
 
 
 def make_serve_step(cfg) -> Callable:
@@ -38,7 +44,54 @@ def _layer_plan(cfg) -> List[Tuple[str, int]]:
     return [("layers", i) for i in range(cfg.n_layers)]
 
 
-def make_compressed_serve_step(cfg, store, *, ring: int = 2, prefetch: bool = True) -> Callable:
+def _check_dense(cfg) -> None:
+    """The reference's rejections, then the port's: only the dense GQA
+    family has a decode step here."""
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} has no decode path")
+    if cfg.family != "dense" or cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family is ported to the serving steps"
+        )
+
+
+def make_kv_tiered_serve_step(cfg, params, kv_store) -> Callable:
+    """Decode step over a :class:`~repro_torch.serve.kvcache.KVCacheStore`.
+
+    ``serve_step(tokens) -> logits``: the cache lives in ``kv_store`` (hot
+    suffix + compressed cold blocks) instead of a state dict and advances
+    as a side effect of the call.  Each layer's block function receives the
+    store's full-length caches put back together (byte-identical to the
+    untiered ones), and the new entries go through the same masked write,
+    so the logits are bit-identical to :func:`~repro_torch.models.
+    decode_step` over the untiered cache.
+    """
+    _check_dense(cfg)
+    if kv_store.n_layers != cfg.n_layers:
+        raise ValueError(
+            f"kv_store holds {kv_store.n_layers} layers, model {cfg.name} has {cfg.n_layers}"
+        )
+    plan = _layer_plan(cfg)
+
+    def serve_step(tokens):
+        pos = torch.tensor(kv_store.pos, dtype=torch.int32, device=kv_store.device)
+        x = decode_front(cfg, params, tokens, pos)
+        outs0, outs1 = [], []
+        for j, (key, i) in enumerate(plan):
+            lp = _util.tree_map(lambda a, i=i: a[i], params[key])
+            x, (u0, u1) = blocks.dense_block_decode(lp, x, kv_store.layer_caches(j), pos, cfg)
+            outs0.append(u0)
+            outs1.append(u1)
+        kv_store.append(torch.stack(outs0), torch.stack(outs1))
+        return decode_tail(cfg, params, x)
+
+    serve_step.kv_store = kv_store
+    return serve_step
+
+
+def make_compressed_serve_step(
+    cfg, store, *, ring: int = 2, prefetch: bool = True, tiles: int = 1, kv_store=None,
+) -> Callable:
     """Compressed-resident decode step over a ``CompressedParamStore``.
 
     ``serve_step(state, tokens) -> (logits, new_state)`` — the contract of
@@ -48,82 +101,140 @@ def make_compressed_serve_step(cfg, store, *, ring: int = 2, prefetch: bool = Tr
     ahead of the layer being computed, so at most ``ring`` decoded layers
     are claimed at any moment (``store.peak_resident``).
 
-    On a CUDA store, decodes run on a side stream: layer *i+1*'s K1/K2
-    launches are enqueued there before layer *i*'s compute is enqueued on
-    the current stream, an event orders each layer's compute after its
-    decode, and ``record_stream`` keeps the decoded buffers alive until
-    that compute is done.  On the CPU the same schedule runs in order.
-    ``prefetch=False`` decodes each layer on demand (residency 1).
+    ``tiles`` sets the decode granularity: with ``tiles > 1`` each layer
+    splits into ``tiles`` contiguous groups of leaves
+    (``store.decode_layer_tile``) that decode as separate jobs, so a
+    layer's first tiles are ready while its last are still decoding, and
+    the next layers' tiles enter the decoder as the current layer's are
+    taken.  Residency is then counted per tile slot: at most ``ring ×
+    tiles``.  The layer put back together is leaf for leaf the same.
+
+    ``kv_store`` (a :class:`~repro_torch.serve.kvcache.KVCacheStore`)
+    joins the KV tier to the ring: the state then needs only ``pos``, each
+    layer attends over the store's caches put back together, and the slot
+    write after the loop becomes ``kv_store.append``.
+
+    On a CUDA store, decodes run on a side stream: the next jobs' K1/K2
+    launches are enqueued there before a layer's compute is enqueued on
+    the current stream, an event orders each layer's (or tile's) compute
+    after its decode, and ``record_stream`` keeps the decoded buffers
+    alive until that compute is done.  On the CPU the same schedule runs
+    in order.  ``prefetch=False`` decodes each job on demand.  Logits are
+    bit-identical to :func:`repro_torch.models.decode_step`.
     """
-    if cfg.family != "dense" or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported to the ring"
-        )
+    _check_dense(cfg)
     if ring < 1:
         raise ValueError(f"ring must be >= 1, got {ring}")
+    if tiles < 1:
+        raise ValueError(f"tiles must be >= 1, got {tiles}")
     plan = _layer_plan(cfg)
     if store.n_layers("layers") != len(plan):
         raise ValueError(
             f"store stack 'layers' holds {store.n_layers('layers')} layers, "
             f"model {cfg.name} needs {len(plan)}"
         )
+    if kv_store is not None and kv_store.n_layers != len(plan):
+        raise ValueError(
+            f"kv_store holds {kv_store.n_layers} layers, model {cfg.name} has {len(plan)}"
+        )
     dev = store.device
-    depth = ring - 1 if prefetch else 0
+    # Ring depth in decode jobs: whole layers (tiles == 1) or tile slots;
+    # either way ring - 1 layers' worth of decode ahead of compute.
+    n_jobs = len(plan) * tiles
+    depth = (ring - 1) * tiles if prefetch else 0
     side = torch.cuda.Stream(dev) if (dev.type == "cuda" and depth) else None
 
-    def _decode(j: int):
+    def _run(n: int):
+        j, t = divmod(n, tiles)
         key, i = plan[j]
+        if tiles == 1:
+            return store.decode_layer(key, i)
+        return store.decode_layer_tile(key, i, t, tiles)
+
+    def _decode(n: int):
         if side is None:
-            return store.decode_layer(key, i), None
+            return _run(n), None
         with torch.cuda.stream(side):
-            tree = store.decode_layer(key, i)
+            out = _run(n)
             done = torch.cuda.Event()
             done.record(side)
-        return tree, done
+        return out, done
 
     def _take(job):
-        tree, done = job
+        out, done = job
         if done is not None:
             cur = torch.cuda.current_stream(dev)
             cur.wait_event(done)
-            for t in _util.tree_leaves(tree):
+            for t in _util.tree_leaves(out):
                 t.record_stream(cur)
-        return tree
+        return out
+
+    def _release(key: str, i: int) -> None:
+        if tiles == 1:
+            store.release(key, i)
+        else:
+            for t in range(tiles):
+                store.release_tile(key, i, t, tiles)
 
     def serve_step(state, tokens):
         pos = state["pos"]
         x = decode_front(cfg, store.static, tokens, pos)
-        c0, c1 = state["kv_k"], state["kv_v"]
-        slot = pos % c0.shape[2]
         inflight: deque = deque()
         nxt = 0
 
         def pump() -> None:
             nonlocal nxt
-            while nxt < len(plan) and len(inflight) < depth:
+            while nxt < n_jobs and len(inflight) < depth:
                 inflight.append(_decode(nxt))
                 nxt += 1
 
-        pump()
-        outs0, outs1 = [], []
-        for j, (key, i) in enumerate(plan):
+        def next_job(n: int):
+            nonlocal nxt
             if inflight:
                 job = inflight.popleft()
             else:
-                job = _decode(j)
-                nxt = j + 1
-            pump()                 # next layers' decode goes ahead of this compute
-            lp = _take(job)
-            x, (u0, u1) = blocks.dense_block_decode(lp, x, (c0[j], c1[j]), pos, cfg)
-            store.release(key, i)
+                job = _decode(n)
+                nxt = n + 1
+            pump()                 # later jobs go ahead of this compute
+            return _take(job)
+
+        def layer_params(j: int):
+            if tiles == 1:
+                return next_job(j)
+            # the layer's tiles in order, pump() between them so later
+            # layers' tiles enter the decoder as slots free up
+            arrays: Dict[int, Any] = {}
+            for t in range(tiles):
+                arrays.update(next_job(j * tiles + t))
+            key, i = plan[j]
+            return store.layer_unflatten(key, i, [arrays[k] for k in sorted(arrays)])
+
+        pump()
+        if kv_store is None:
+            c0, c1 = state["kv_k"], state["kv_v"]
+            slot = pos % c0.shape[2]
+        outs0, outs1 = [], []
+        for j, (key, i) in enumerate(plan):
+            lp = layer_params(j)
+            caches = (c0[j], c1[j]) if kv_store is None else kv_store.layer_caches(j)
+            x, (u0, u1) = blocks.dense_block_decode(lp, x, caches, pos, cfg)
+            _release(key, i)
             outs0.append(u0)
             outs1.append(u1)
         new_state = dict(state)
-        new_state["kv_k"] = _slot_write(c0, torch.stack(outs0), slot)
-        new_state["kv_v"] = _slot_write(c1, torch.stack(outs1), slot)
+        n0, n1 = torch.stack(outs0), torch.stack(outs1)
+        if kv_store is None:        # the single slot write, as decode_step
+            new_state["kv_k"] = _slot_write(c0, n0, slot)
+            new_state["kv_v"] = _slot_write(c1, n1, slot)
+        else:
+            kv_store.append(n0, n1)
         new_state["pos"] = pos + 1
         return decode_tail(cfg, store.static, x), new_state
 
+    serve_step.store = store
+    serve_step.ring = ring
+    serve_step.tiles = tiles
+    serve_step.kv_store = kv_store
     return serve_step
 
 

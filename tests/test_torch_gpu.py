@@ -910,3 +910,161 @@ def test_card_save_whose_k7_fails_raises_and_publishes_nothing(cuda, tmp_path, m
         mgr.wait()
     assert mgr.latest_step() is None
     assert not any(n.startswith("step_") for n in os.listdir(tmp_path))
+
+
+# ---------------------------------------------------------------------------
+# granite_20b's widths: one 6144x24576 MLP weight (1,152 plane chunks,
+# 18,432 K7 segments, a single leaf over MAX_BATCH_BYTES), and the tiered
+# ring on the card
+# ---------------------------------------------------------------------------
+
+W_IN = (6144, 24576)
+PLANE_CHUNK = 131_072
+
+
+def _card_bf16(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * 0.02).to(torch.bfloat16)
+
+
+def _chunk_slice(args, a, b):
+    """K1's per-chunk arrays cut to chunks ``a:b`` (offsets stay absolute)."""
+    out = dict(args)
+    for k in ("plane_ids", "counts", "out_off"):
+        out[k] = args[k][a:b].contiguous()
+    for k in ("word_off", "sync_off"):
+        out[k] = args[k][a : b + 1].contiguous()
+    return out
+
+
+def test_full_width_leaf_k7_k1_on_card(cuda):
+    """The w_in leaf of granite_20b encoded on the card (K3, K7) equals the
+    host's blob; its feed's index pass (K1 serial) and sync decode restore
+    it bit for bit; K1's sync decode and index pass equal their plain
+    versions on the first and last chunks."""
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+
+    cfg = zipnn.ZipNNConfig(backend="huffman")           # 256 KiB: 131,072-symbol planes
+    leaf = _card_bf16(W_IN, 0, cuda)
+    reset_launch_counts()
+    ct = zipnn.compress_array(leaf, cfg, options=CodecOptions(backend="device", threads=-1))
+    meta, _ = container.unpack_stream(ct.blob)
+    n_huff = sum(e.method == codec.Method.HUFF for pe in meta.entries for e in pe)
+    assert n_huff >= W_IN[0] * W_IN[1] // PLANE_CHUNK
+    assert launch_counts()["plane_producer"] == 1        # one leaf over the cap: its own launch
+    # K7 packs at most MAX_BATCH_BYTES / (2 * chunk bytes) = 1,024 chunks a launch
+    assert launch_counts()["bitpack_encode_chunks"] == -(-n_huff // (MAX_BATCH_BYTES // (2 * PLANE_CHUNK)))
+    host = zipnn.compress_array(leaf.cpu(), cfg, options=CodecOptions(backend="host", threads=-1))
+    assert ct.blob == host.blob
+    feed = zipnn.build_array_feed(ct, cfg, device=cuda)
+    assert launch_counts()["huffdecode_index"] == 1
+    assert torch.equal(feed.decode().view(torch.int16), leaf.view(torch.int16))
+    args = feed.launch_args()
+    n_out = args.pop("out_bytes")
+    n = args["counts"].numel()
+    assert n >= W_IN[0] * W_IN[1] // PLANE_CHUNK          # the exponent plane's 1,152
+    full = torch.zeros(n_out, dtype=torch.uint8, device=cuda)
+    cur = huffdecode_chunks(**args, out=full)
+    for a, b in ((0, 6), (n - 6, n)):
+        part = _chunk_slice(args, a, b)
+        out_p = torch.zeros(n_out, dtype=torch.uint8, device=cuda)
+        cur_p = huffdecode_chunks_plain(**part, out=out_p)
+        sync, sync_off = part.pop("sync"), part.pop("sync_off")
+        out_i = torch.zeros(n_out, dtype=torch.uint8, device=cuda)
+        cur_i, sync_i = huffdecode_index(**part, out=out_i, sync_off=sync_off)
+        lo = int(part["out_off"][0])
+        hi = int(part["out_off"][-1]) + int(part["counts"][-1])
+        assert torch.equal(cur_p, cur[a:b]) and torch.equal(cur_i, cur[a:b])
+        assert torch.equal(out_p[lo:hi], full[lo:hi]) and torch.equal(out_i[lo:hi], full[lo:hi])
+        lo_s, hi_s = int(sync_off[0]), int(sync_off[-1])   # the slice's entries, absolute
+        assert torch.equal(sync_i[lo_s:hi_s], sync[lo_s:hi_s])
+
+
+def test_full_width_k7_segments_match_plain(cuda):
+    """K7 over the 1,152 exponent-plane chunks of a 6144x24576 leaf (18,432
+    segments, over five times the 3,200 of the test above) against its
+    plain version on the first and last chunks."""
+    leaf = _card_bf16(W_IN, 1, cuda)
+    planes, _ = plane_producer(leaf.view(torch.int16).reshape(-1), itemsize=2,
+                               chunk_elems=PLANE_CHUNK)
+    exp = planes[0].contiguous()               # the exponent plane
+    counts = torch.bincount(exp, minlength=256).cpu().numpy()
+    lens = huffman.code_lengths(counts + 1)
+    codes = huffman.canonical_codes(lens)
+    c = exp.numel() // PLANE_CHUNK
+    assert c * (PLANE_CHUNK // bitpack_mod.SEGMENT_SYMS) == 18_432
+    tabs = [torch.from_numpy(np.asarray(t, dtype=np.int32)[None]).to(cuda) for t in (lens, codes)]
+    pids = torch.zeros(c, dtype=torch.int32, device=cuda)
+    wk, nk = bitpack_encode_chunks(exp, pids, *tabs, chunk_syms=PLANE_CHUNK)
+    assert int(nk.min()) > 0                   # no -1 (table) or -2 (look-back gave up)
+    for a, b in ((0, 4), (c - 4, c)):
+        wp, np_ = bitpack_encode_chunks_plain(
+            exp[a * PLANE_CHUNK : b * PLANE_CHUNK].contiguous(), pids[a:b].contiguous(), *tabs,
+            chunk_syms=PLANE_CHUNK)
+        assert torch.equal(nk[a:b], np_) and torch.equal(wk[a:b], wp)
+
+
+def test_k3_single_leaf_over_the_batch_cap(cuda):
+    """A 6144x24576 bf16 leaf (302 MB) is over MAX_BATCH_BYTES: it planes
+    in one launch of its own, and the next leaf in another."""
+    from repro_torch.core import bitlayout, device_plane
+
+    leaf = _card_bf16(W_IN, 2, cuda)
+    assert leaf.numel() * 2 > device_plane.MAX_BATCH_BYTES
+    x = leaf.view(torch.int16).reshape(-1)
+    pk, hk = plane_producer(x, itemsize=2, chunk_elems=PLANE_CHUNK)
+    pp, hp = plane_producer_plain(x, itemsize=2, chunk_elems=PLANE_CHUNK)
+    assert torch.equal(pk, pp) and torch.equal(hk, hp)
+    small = _card_bf16((1000,), 3, cuda)
+    layout = bitlayout.layout_for("bfloat16")
+    params = zipnn.ZipNNConfig().plane_params(2)
+    reset_launch_counts()
+    out = device_plane.produce_planes_batched([leaf, small], layout, params, device=cuda)
+    assert launch_counts()["plane_producer"] == 2
+    for p in range(2):
+        assert np.array_equal(np.asarray(out[0][0][p]), pp[p].cpu().numpy())
+    want_small, _ = plane_producer_plain(small.view(torch.int16), itemsize=2, chunk_elems=1000)
+    for p in range(2):
+        assert np.array_equal(np.asarray(out[1][0][p]), want_small[p].cpu().numpy())
+
+
+def test_tiered_ring_on_card(cuda):
+    """granite_20b reduced on the card: the ring at tiles=2 with a KV store
+    is bit-identical to the plain step over the untiered cache; evicted
+    blocks encode on the card (K3, K7) to the host's bytes and decode
+    there (K1's one-shot decode, K2)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import KVCacheStore
+
+    cfg = get_config("granite_20b").reduced()
+    params = init_params(cfg, 0, device=cuda)
+    steps, B = 12, 2
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (steps, B, 1)).astype(np.int32)
+    ).to(cuda)
+    state = init_decode_state(cfg, B, steps, start_pos=0, device=cuda)
+    want = []
+    for t in toks:
+        logits, state = decode_step(cfg, params, state, t)
+        want.append(logits)
+    zcfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 15, backend="huffman")   # K3's least chunk
+    kv = KVCacheStore(init_decode_state(cfg, B, steps, start_pos=0, device=cuda),
+                      hot_window=3, block_len=2, config=zcfg)
+    store = CompressedParamStore.from_params(
+        params, zcfg, options=CodecOptions(backend="device"), payload_feed=True)
+    cstep = make_compressed_serve_step(cfg, store, ring=2, tiles=2, kv_store=kv)
+    reset_launch_counts()
+    s = {"pos": torch.tensor(0, dtype=torch.int32, device=cuda)}
+    for i, t in enumerate(toks):
+        logits, s = cstep(s, t)
+        assert torch.equal(logits.view(torch.int32), want[i].view(torch.int32)), i
+    counts = launch_counts()
+    assert kv.n_cold_blocks == (steps - 3) // 2
+    assert counts["plane_producer"] == 2 * cfg.n_layers * kv.n_cold_blocks
+    assert counts["huffdecode_serial"] > 0 and counts["plane_consumer"] > 0
+    assert store.peak_resident <= 2 * 2
+    for key in kv.keys:
+        for j in range(cfg.n_layers):
+            for b, ct in enumerate(kv.cold_blocks(key, j)):
+                block = state[key][j][:, 2 * b : 2 * b + 2].contiguous().cpu()
+                assert ct.blob == zipnn.compress_array(block, zcfg, options=HOST).blob
