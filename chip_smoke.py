@@ -89,9 +89,10 @@ without printing the final line:
     layernorm, GELU, QKV bias), cut in depth to 4 of its 52 layers, random
     bf16 weights drawn on the card (``models.model.init_params``, seed 0):
     the store built on the card as in phase 5 (layer 0's 15 blobs against
-    a host build of that layer; every decoded leaf of every layer against
-    its param; K3 launches as the batch cap splits each layer, K7 and the
-    index pass once per Huffman leaf); the ring at ``tiles`` 1 and 4
+    the host's encode of each leaf; every decoded leaf of every layer
+    against its param; K3 launches as the batch cap splits each layer, K7
+    as its chunk cap splits each leaf, the index pass once per Huffman
+    leaf, all planned from the blobs); the ring at ``tiles`` 1 and 4
     against the plain step on B=4 requests of 16 + 16 tokens (logits
     bit-identical, no payload upload, at most ``ring x tiles`` tile slots,
     K1/K2 launches equal to the plan); a profiler trace of 4 ring steps at
@@ -104,8 +105,30 @@ without printing the final line:
     pass, one-shot decode), K2, K3 and K7 at the 6144x24576 ``w_in`` leaf
     against their plain versions (K1's serial forms against the sync
     decode: their plain version takes a step a symbol) and their bounds;
-14. report: store sizes, build times, tokens/s, file and checkpoint times,
-    the ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+14. olmoe_1b_7b whole at its published size (16 layers, d_model 2048, 16
+    heads of 128, 64 experts of 2048x1024, top-8, vocab 50,304, routers
+    f32; 13,842,386,944 B): the same store checks (layer 0's 10 blobs
+    against the host's; every leaf of layers 0 and 15 decoded; the expert
+    leaf is exactly K3's 256 MiB batch cap and K7's 1,024-chunk cap, so the
+    plans test both edges), the ring at ``tiles`` 1 and 4 against the
+    plain step with traces, and K1/K2/K3/K7 at an expert leaf and at a
+    router leaf (f32: K2's and K3's 4-byte paths);
+15. deepseek_v2_236b at its published widths (d_model 5120, 128 heads, MLA
+    with a 512-wide latent and 64-wide rope key, 160 routed experts of
+    5120x1536 top-6 and 2 shared, vocab 102,400), cut in depth to 2 of its
+    60 layers, the dense layer and one MoE layer (10,718,996,480 B): every
+    blob but the three expert leaves' against the host's encode; every leaf
+    of both layers decoded against its param, the 2,516,582,400-byte expert
+    leaves included (K3, K7 in 10 launches, K1's index pass and sync
+    decode and K2, with offsets past 2^31 bytes); the ring at ``tiles`` 1
+    and 4; the ring with the MLA KV tier over a 320-token prompt and 16
+    greedy tokens (latent blocks of (4, 64, 512) and (4, 64, 64)); K1's sync
+    decode at the expert leaf against its plain version over all 9,600
+    chunks, and K2/K3/K7 there (against their plain versions over the first
+    1,024 chunks) and at the router;
+16. report: store sizes, build times, tokens/s, file and checkpoint times,
+    each phase's seconds and peak card memory, the ``kernels`` JSON line,
+    and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -866,10 +889,13 @@ def has_huff(blob: bytes) -> bool:
 def k7_launches(blob: bytes) -> int:
     """K7 launches that encoding ``blob``'s leaf on the card takes:
     ``core.device_entropy.encode_planes`` packs at most
-    ``MAX_BATCH_BYTES // (2 * chunk bytes)`` Huffman chunks a launch."""
+    ``MAX_BATCH_BYTES // (2 * chunk bytes)`` Huffman chunks a launch (the
+    blob's own plane chunk: 131,072 bytes for bf16, 65,536 for f32)."""
+    from repro_torch.core import container
     from repro_torch.core.device_plane import MAX_BATCH_BYTES
 
-    per_launch = max(1, MAX_BATCH_BYTES // (2 * BF16_CHUNK))
+    meta, _ = container.unpack_stream(blob)
+    per_launch = max(1, MAX_BATCH_BYTES // (2 * meta.chunk_bytes))
     return -(-huff_chunks(blob) // per_launch)
 
 
@@ -1788,10 +1814,13 @@ def measure_ops(dev):
 
 
 GRANITE_LAYERS = 4               # granite_20b cut in depth from 52; every width as published
-GRANITE_TILES = (1, 4)
+TILES = (1, 4)                   # the ring's decode jobs a layer, in the served phases
 W_IN = (6144, 24576)             # granite_20b's widest leaf: one MLP weight
-KV_PROMPT, KV_GEN = 384, 32      # 416 positions: blocks evict after 320 and 384
+KV_PROMPT, KV_GEN = 384, 32      # granite: 416 positions, blocks evict after 320 and 384
+DS_KV_PROMPT, DS_KV_GEN = 320, 16  # deepseek: 336 positions, one block evicts after 320
 KV_HOT, KV_BLOCK = 256, 64       # the reference KVCacheStore's defaults
+DEEPSEEK_LAYERS = 2              # deepseek_v2_236b cut in depth from 60: its dense layer, one MoE layer
+DS_PLAIN_PREFIX = 1 << 27        # elements of deepseek's expert leaf held against plain K3/K7/K2
 
 
 def k3_windows(sizes, cap):
@@ -1817,39 +1846,62 @@ def kv_visible_blocks(n_pos, hot, block):
     return out
 
 
-def phase_granite(dev, zcfg):
-    """granite_20b at its published widths, cut to GRANITE_LAYERS layers:
-    the store built on the card against the host's layer-0 blobs, every
-    decoded leaf against its param, the ring at each of GRANITE_TILES
-    against the plain step, a profiler trace, and the ring with the KV
-    tier over KV_PROMPT + KV_GEN positions against the plain step over
-    the untiered cache."""
-    import dataclasses
+def bits(t):
+    """A tensor's bits as integers of its width, for exact comparison."""
+    import torch
+
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def free_card():
+    """Drop the card memory an earlier phase left cached, and start the
+    peak count anew."""
+    import gc
 
     import torch
 
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def build_plan(store):
+    """The build's launches, planned from the store's blobs: K3 per layer
+    and dtype as the batch cap splits it, K7 per Huffman leaf as its
+    per-launch chunk cap splits it, K1's index pass per Huffman leaf."""
+    from repro_torch.core import bitlayout
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+
+    plan = {"plane_producer": 0, "bitpack_encode_chunks": 0, "huffdecode_index": 0}
+    for key in store.stack_keys:
+        for i in range(store.n_layers(key)):
+            leaves = store.manifest(key, i)["leaves"]
+            groups: dict = {}
+            for ct in leaves:
+                groups.setdefault(ct.dtype, []).append(
+                    int(np.prod(ct.shape)) * bitlayout.LAYOUTS[ct.dtype].itemsize)
+            plan["plane_producer"] += sum(k3_windows(g, MAX_BATCH_BYTES) for g in groups.values())
+            plan["bitpack_encode_chunks"] += sum(k7_launches(ct.blob) for ct in leaves)
+            plan["huffdecode_index"] += sum(has_huff(ct.blob) for ct in leaves)
+    return plan
+
+
+def build_served_store(dev, zcfg, cfg, params, label, host_pick, check_layers):
+    """The serving store built on the card from ``params``: its launches
+    equal to the plan from its blobs, no HUFF-symbol upload, a payload
+    feed for every leaf, the blobs of the leaves ``host_pick(key, i,
+    path)`` chooses equal to the host's encode of each, and every leaf of
+    the layers ``check_layers`` (``(key, i)`` pairs) decoded on the card
+    equal to its param bit for bit."""
+    import torch
+
     from repro_torch import _util
-    from repro_torch.configs import get_config
-    from repro_torch.core import device_entropy, device_plane, zipnn
+    from repro_torch.core import device_entropy, zipnn
     from repro_torch.core.options import CodecOptions
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import decode_step, init_decode_state
-    from repro_torch.models.model import init_params
-    from repro_torch.serve import (
-        CompressedParamStore, KVCacheStore, greedy_generate, make_compressed_serve_step,
-    )
-
-    cfg = dataclasses.replace(get_config("granite_20b"), n_layers=GRANITE_LAYERS)
-    L = cfg.n_layers
-    t_start = time.perf_counter()
-    params = init_params(cfg, SEED, device=dev)
-    torch.cuda.synchronize()
-    per_layer = sum(t[0].numel() for t in _util.tree_leaves(params["layers"]))
-    n_params = sum(t.numel() for t in _util.tree_leaves(params))
-    if per_layer != 379_121_920:
-        raise AssertionError(f"granite_20b layer has {per_layer} parameters")
-    log(f"granite_20b x{L} layers: {n_params} bf16 parameters ({2 * n_params} B plain), "
-        f"{per_layer} a layer, {len(_util.tree_leaves(params['layers']))} leaves a layer")
+    from repro_torch.serve import CompressedParamStore
 
     device_entropy.reset_transfer_stats()
     reset_launch_counts()
@@ -1862,136 +1914,187 @@ def phase_granite(dev, zcfg):
     t_build = time.perf_counter() - t0
     build = launch_counts()
     if device_entropy.transfer_stats()["symbol_uploads"]:
-        raise AssertionError("the granite build uploaded HUFF symbols")
-    manifests = [store.manifest("layers", i) for i in range(L)]
-    huff = [[has_huff(ct.blob) for ct in m["leaves"]] for m in manifests]
-    sizes = [int(np.prod(ct.shape)) * 2 for ct in manifests[0]["leaves"]]
-    build_plan = {"plane_producer": L * k3_windows(sizes, device_plane.MAX_BATCH_BYTES),
-                  "bitpack_encode_chunks": sum(k7_launches(ct.blob) for m in manifests
-                                               for ct in m["leaves"]),
-                  "huffdecode_index": sum(map(sum, huff))}
-    for name, n in build_plan.items():
+        raise AssertionError(f"the {label} build uploaded HUFF symbols")
+    plan = build_plan(store)
+    for name, n in plan.items():
         if build[name] != n:
-            raise AssertionError(f"granite build: {name} {build[name]} launches, plan {n}")
+            raise AssertionError(f"{label} build: {name} {build[name]} launches, plan {n}")
+    missing = sum(f is None for key in store.stack_keys for layer in store.feeds(key)
+                  for f in layer)
+    if missing:
+        raise AssertionError(f"{label}: {missing} stacked leaves have no payload feed")
 
     t0 = time.perf_counter()
-    host = CompressedParamStore.from_params(
-        {"layers": _util.tree_map(lambda a: a[:1], params["layers"])}, zcfg,
-        options=CodecOptions(threads=-1, backend="host"), device=dev,
-    )
+    host_opts = CodecOptions(threads=-1, backend="host")
+    checked = 0
+    for key in store.stack_keys:
+        for i in range(store.n_layers(key)):
+            layer = _util.tree_map(lambda a, i=i: a[i], params[key])
+            cts = store.manifest(key, i)["leaves"]
+            for (path, leaf), ct in zip(_util.tree_flatten_with_keys(layer), cts):
+                if not host_pick(key, i, path):
+                    continue
+                host = zipnn.compress_array(leaf.cpu(), zcfg, options=host_opts, device="cpu")
+                if host.blob != ct.blob:
+                    raise AssertionError(f"{label} {key} {i} {path}: the card's blob differs "
+                                         "from the host's")
+                checked += 1
     t_host = time.perf_counter() - t0
-    want = [ct.blob for ct in host.manifest("layers", 0)["leaves"]]
-    if [ct.blob for ct in manifests[0]["leaves"]] != want:
-        raise AssertionError("granite layer 0: blobs built on the card differ from the host's")
-    del host
-    for i in range(L):
-        got = _util.tree_leaves(store.decode_layer("layers", i))
-        ref = _util.tree_leaves(_util.tree_map(lambda a, i=i: a[i], params["layers"]))
-        store.release("layers", i)
-        if len(got) != len(ref) or not all(
-                torch.equal(g.view(torch.int16), w.view(torch.int16)) for g, w in zip(got, ref)):
-            raise AssertionError(f"granite layer {i} does not decode bit-exactly")
+    for key, i in check_layers:
+        got = _util.tree_leaves(store.decode_layer(key, i))
+        ref = _util.tree_leaves(_util.tree_map(lambda a, i=i: a[i], params[key]))
+        store.release(key, i)
+        if len(got) != len(ref) or not all(torch.equal(bits(g), bits(w))
+                                           for g, w in zip(got, ref)):
+            raise AssertionError(f"{label} {key} layer {i} does not decode bit-exactly")
+        del got, ref
     store.reset_peak()
-    layer_raw = store.raw_bytes // L
-    layer_payload = store.device_payload_bytes / L
-    sizes_out = {
+    sizes = {
         "ratio_pct": store.ratio_pct, "comp_bytes": store.comp_bytes,
         "device_payload_bytes": store.device_payload_bytes, "raw_bytes": store.raw_bytes,
         "static_bytes": store.static_bytes, "footprint_bytes": store.footprint_bytes(RING),
         "plain_bytes": store.raw_bytes + store.static_bytes,
-        # the same store at the published 52 layers, from this run's per-layer bytes
-        "footprint_bytes_52": int(52 * layer_payload + store.static_bytes
-                                  + RING * store.max_layer_raw_bytes),
-        "plain_bytes_52": 52 * layer_raw + store.static_bytes,
+        "max_layer_raw_bytes": store.max_layer_raw_bytes,
+        "payload_bytes_by_stack": {
+            key: sum(f.device_bytes for layer in store.feeds(key) for f in layer)
+            for key in store.stack_keys},
+        "raw_bytes_by_stack": {
+            key: sum(store.manifest(key, i)["raw_bytes"] for i in range(store.n_layers(key)))
+            for key in store.stack_keys},
     }
-    log(f"granite store on the card in {t_build:.3f} s ({store.raw_bytes / 1e6 / t_build:.1f} "
-        f"MB/s of stacks, encode + feed upload + index pass); build launches {build_plan}; "
-        f"layer 0's {len(want)} blobs equal the host's (host build of layer 0: {t_host:.3f} s); "
-        f"every decoded leaf of all {L} layers equals its param")
-    log(f"granite store: {sizes_out}")
+    log(f"{label} store on the card in {t_build:.3f} s ({store.raw_bytes / 1e6 / t_build:.1f} "
+        f"MB/s of stacks, encode + feed upload + index pass); build launches {plan}, equal to "
+        f"the plan from the blobs; {checked} blobs equal the host's encode ({t_host:.3f} s on "
+        f"the host); every decoded leaf of {list(check_layers)} equals its param")
+    log(f"{label} store: {sizes}")
+    return store, {"build_s": t_build, "host_check_s": t_host, "host_checked_leaves": checked,
+                   "store": sizes, "build_launches": plan, "launches": dict(build)}
 
-    prompt = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
+
+def per_step_plan(store):
+    """K1 sync decodes and K2 launches of one ring step: every feed's."""
+    feeds = [f for key in store.stack_keys for layer in store.feeds(key) for f in layer]
+    return {"huffdecode_chunks": sum(f.n_launches["huffdecode_chunks"] for f in feeds),
+            "plane_consumer": sum(f.n_launches["plane_consumer"] for f in feeds)}
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def run_rings(dev, cfg, store, params, label, out, seed):
+    """The ring at each of TILES against the plain step on B=BATCH
+    requests of PROMPT + STEPS tokens: logits bit-identical, no payload
+    upload or serial K1, at most ``RING x tiles`` slots resident, K1/K2
+    launches equal to the plan; then a profiler trace of 4 ring steps at
+    each."""
+    import torch
+
+    from repro_torch.core import device_entropy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_decode_state
+    from repro_torch.serve import greedy_generate, make_compressed_serve_step
+
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)).to(dev)
     s = init_decode_state(cfg, BATCH, PROMPT + STEPS, start_pos=0, device=dev)
     decode_step(cfg, params, s, prompt[:, :1])                # warm the plain path
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     plain_logits: list = []
     t0 = time.perf_counter()
     plain_tokens, _ = greedy_generate(cfg, params, prompt, STEPS, logits_out=plain_logits)
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
     n_steps = PROMPT + STEPS
-    feeds = store.feeds("layers")
-    per_step = {
-        "huffdecode_chunks": sum(f.n_launches["huffdecode_chunks"] for l in feeds for f in l if f),
-        "plane_consumer": sum(f.n_launches["plane_consumer"] for l in feeds for f in l if f),
-    }
-    out = {"build_s": t_build, "host_layer0_s": t_host, "store": sizes_out,
-           "build_launches": build_plan, "plain_tokens_per_s": BATCH * n_steps / t_plain,
-           "plain_s": t_plain, "ring": {}, "launches": dict(build)}
-    for tiles in GRANITE_TILES:
+    per_step = per_step_plan(store)
+    # card bytes above what the phase holds anyway (params and payloads)
+    out.update({"plain_tokens_per_s": BATCH * n_steps / t_plain, "plain_s": t_plain,
+                "ring": {}, "per_step": per_step, "held_card_bytes": base,
+                "plain_peak_extra_bytes": torch.cuda.max_memory_allocated(dev) - base})
+    for tiles in TILES:
         cstep = make_compressed_serve_step(cfg, store, ring=RING, tiles=tiles)
         store.reset_peak()
         device_entropy.reset_transfer_stats()
         reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
         logits: list = []
         t0 = time.perf_counter()
         tokens, _ = greedy_generate(cfg, None, prompt, STEPS, serve_step=cstep, logits_out=logits)
         torch.cuda.synchronize()
         t_ring = time.perf_counter() - t0
+        extra = torch.cuda.max_memory_allocated(dev) - base
         launches = launch_counts()
         uploads = device_entropy.transfer_stats()["payload_uploads"]
-        check_same_run(f"granite ring tiles={tiles}", plain_logits, plain_tokens, logits,
+        check_same_run(f"{label} ring tiles={tiles}", plain_logits, plain_tokens, logits,
                        tokens, n_steps, cfg.vocab_size)
         for name, n in per_step.items():
             if launches[name] != n * n_steps:
-                raise AssertionError(f"granite tiles={tiles} {name}: {launches[name]} launches, "
-                                     f"plan {n * n_steps}")
+                raise AssertionError(f"{label} tiles={tiles} {name}: {launches[name]} "
+                                     f"launches, plan {n * n_steps}")
         if launches["huffdecode_serial"] or launches["huffdecode_index"] or uploads:
-            raise AssertionError(f"granite ring: serial K1 or uploads: {launches}, {uploads}")
+            raise AssertionError(f"{label} ring: serial K1 or uploads: {launches}, {uploads}")
         if store.peak_resident > RING * tiles:
-            raise AssertionError(f"granite peak residency {store.peak_resident} > "
+            raise AssertionError(f"{label} peak residency {store.peak_resident} > "
                                  f"{RING} x {tiles}")
         out["ring"][tiles] = {"tokens_per_s": BATCH * n_steps / t_ring, "s": t_ring,
-                              "peak_resident": store.peak_resident}
-        for k, v in launches.items():
-            out["launches"][k] = out["launches"].get(k, 0) + v
-        log(f"granite ring tiles={tiles}: logits bit-identical at all {n_steps} steps, peak "
+                              "peak_resident": store.peak_resident,
+                              "peak_extra_bytes": extra}
+        add_launches(out["launches"], launches)
+        log(f"{label} ring tiles={tiles}: logits bit-identical at all {n_steps} steps, peak "
             f"resident {store.peak_resident} (at most {RING * tiles}), payload uploads 0; "
             f"{BATCH * n_steps / t_ring:.2f} tokens/s ({t_ring:.3f} s) against plain "
-            f"{BATCH * n_steps / t_plain:.2f} ({t_plain:.3f} s)")
-    out["per_step"] = per_step
+            f"{BATCH * n_steps / t_plain:.2f} ({t_plain:.3f} s); card bytes at peak over the "
+            f"{base} held: ring {extra}, plain {out['plain_peak_extra_bytes']}")
     out["trace"] = {t: profile_ring(dev, cfg, store, steps=4, tiles=t,
-                                    name=f"granite_ring_trace_t{t}") for t in GRANITE_TILES}
+                                    name=f"{label}_ring_trace_t{t}") for t in TILES}
 
-    # The KV tier on the ring, tiles=4: the prompt through the tiered step
-    n_pos = KV_PROMPT + KV_GEN
-    prompt = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
-        0, cfg.vocab_size, (BATCH, KV_PROMPT)).astype(np.int32)).to(dev)
-    plain_logits = []
+
+def run_kv_tier(dev, zcfg, cfg, store, params, label, out, n_prompt, n_gen, seed, tiles=4):
+    """The ring at ``tiles`` with a ``KVCacheStore`` at the reference's
+    defaults over ``n_prompt + n_gen`` positions against the plain step
+    over the untiered cache: logits bit-identical at every step, each
+    evicted block's blob equal to the host's encode of it, the K3/K7
+    launches at eviction and K1's one-shot decode and K2 in the reassembly
+    equal to the block plan."""
+    import torch
+
+    from repro_torch.core import device_entropy, zipnn
+    from repro_torch.core.options import CodecOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_decode_state
+    from repro_torch.serve import KVCacheStore, greedy_generate, make_compressed_serve_step
+
+    L = cfg.n_layers
+    n_pos = n_prompt + n_gen
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (BATCH, n_prompt)).astype(np.int32)).to(dev)
+    plain_logits: list = []
     t0 = time.perf_counter()
-    plain_tokens, plain_state = greedy_generate(cfg, params, prompt, KV_GEN,
+    plain_tokens, plain_state = greedy_generate(cfg, params, prompt, n_gen,
                                                 logits_out=plain_logits)
     torch.cuda.synchronize()
     t_plain_kv = time.perf_counter() - t0
     kv = KVCacheStore(init_decode_state(cfg, BATCH, n_pos, start_pos=0, device=dev),
                       hot_window=KV_HOT, block_len=KV_BLOCK, config=zcfg)
-    cstep = make_compressed_serve_step(cfg, store, ring=RING, tiles=4, kv_store=kv)
+    cstep = make_compressed_serve_step(cfg, store, ring=RING, tiles=tiles, kv_store=kv)
     store.reset_peak()
     device_entropy.reset_transfer_stats()
     reset_launch_counts()
-    logits = []
+    logits: list = []
     t0 = time.perf_counter()
-    tokens, _ = greedy_generate(cfg, None, prompt, KV_GEN, serve_step=cstep, logits_out=logits)
+    tokens, _ = greedy_generate(cfg, None, prompt, n_gen, serve_step=cstep, logits_out=logits)
     torch.cuda.synchronize()
     t_kv = time.perf_counter() - t0
     launches = launch_counts()
     uploads = device_entropy.transfer_stats()
-    check_same_run("granite KV tier", plain_logits, plain_tokens, logits, tokens, n_pos,
+    check_same_run(f"{label} KV tier", plain_logits, plain_tokens, logits, tokens, n_pos,
                    cfg.vocab_size)
     visible = kv_visible_blocks(n_pos + 1, KV_HOT, KV_BLOCK)    # [n_pos]: after the last step
     if kv.n_cold_blocks < 1 or kv.n_cold_blocks != visible.pop():
-        raise AssertionError(f"granite KV tier: {kv.n_cold_blocks} cold blocks")
+        raise AssertionError(f"{label} KV tier: {kv.n_cold_blocks} cold blocks")
     kv_huff, kv_k7 = {}, 0
     for key in kv.keys:
         for j in range(L):
@@ -2000,13 +2103,13 @@ def phase_granite(dev, zcfg):
                 host_blob = zipnn.compress_array(
                     block.cpu(), zcfg, options=CodecOptions(backend="host")).blob
                 if ct.blob != host_blob:
-                    raise AssertionError(f"granite KV block {key} {j} {b}: the card's blob "
+                    raise AssertionError(f"{label} KV block {key} {j} {b}: the card's blob "
                                          "differs from the host's")
                 kv_huff[(key, j, b)] = has_huff(ct.blob)
                 kv_k7 += k7_launches(ct.blob)
-    n_blocks = len(kv_huff)
+    per_step = out["per_step"]
     kv_plan = {
-        "plane_producer": n_blocks,
+        "plane_producer": len(kv_huff),
         "bitpack_encode_chunks": kv_k7,
         "huffdecode_serial": sum(kv_huff[(k, j, b)] for v in visible for k in kv.keys
                                  for j in range(L) for b in range(v)),
@@ -2016,52 +2119,226 @@ def phase_granite(dev, zcfg):
     }
     for name, n in kv_plan.items():
         if launches[name] != n:
-            raise AssertionError(f"granite KV tier: {name} {launches[name]} launches, plan {n}")
-    if store.peak_resident > RING * 4 or kv.peak_hot_positions > KV_HOT + KV_BLOCK:
-        raise AssertionError(f"granite KV tier residency: {store.peak_resident} tile slots, "
+            raise AssertionError(f"{label} KV tier: {name} {launches[name]} launches, plan {n}")
+    if store.peak_resident > RING * tiles or kv.peak_hot_positions > KV_HOT + KV_BLOCK:
+        raise AssertionError(f"{label} KV tier residency: {store.peak_resident} tile slots, "
                              f"{kv.peak_hot_positions} hot positions")
-    for k, v in launches.items():
-        out["launches"][k] = out["launches"].get(k, 0) + v
+    add_launches(out["launches"], launches)
     out["kv"] = {
-        "positions": n_pos, "tokens_per_s": BATCH * n_pos / t_kv, "s": t_kv,
+        "positions": n_pos, "tiles": tiles, "tokens_per_s": BATCH * n_pos / t_kv, "s": t_kv,
         "plain_tokens_per_s": BATCH * n_pos / t_plain_kv, "plain_s": t_plain_kv,
         "cold_blocks": kv.n_cold_blocks, "cold_comp_bytes": kv.cold_comp_bytes,
         "cold_raw_bytes": kv.cold_raw_bytes, "hot_bytes": kv.hot_bytes,
         "full_cache_bytes": kv.full_cache_bytes, "resident_bytes": kv.resident_bytes(1),
         "peak_hot_positions": kv.peak_hot_positions,
         "peak_inflight_blocks": kv.peak_inflight_blocks, "launches": kv_plan,
-        "payload_uploads": uploads["payload_uploads"],
+        "payload_uploads": uploads["payload_uploads"], "keys": list(kv.keys),
+        "block_shapes": [list(kv.cold_blocks(k, 0)[0].shape) for k in kv.keys],
     }
-    log(f"granite KV tier (hot {KV_HOT}, block {KV_BLOCK}, tiles=4): logits bit-identical at "
-        f"all {n_pos} steps; {kv.n_cold_blocks} cold blocks a (key, layer), each equal to the "
-        f"host's encode; launches equal the plan {kv_plan}; "
+    log(f"{label} KV tier (hot {KV_HOT}, block {KV_BLOCK}, tiles={tiles}, caches {kv.keys}): "
+        f"logits bit-identical at all {n_pos} steps; {kv.n_cold_blocks} cold blocks a (key, "
+        f"layer), each equal to the host's encode; launches equal the plan {kv_plan}; "
         f"{BATCH * n_pos / t_kv:.2f} tokens/s ({t_kv:.3f} s) against plain "
         f"{BATCH * n_pos / t_plain_kv:.2f} ({t_plain_kv:.3f} s)")
-    log(f"granite KV tier bytes: {out['kv']}")
-    out["kernels"] = measure_granite_kernels(dev, store, params)
+    log(f"{label} KV tier bytes: {out['kv']}")
+
+
+def served_params(dev, cfg, label):
+    """``init_params(cfg, SEED)`` on the card, with its byte count."""
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.models.model import init_params
+
+    params = init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    leaves = _util.tree_leaves(params)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"{label}: {sum(t.numel() for t in leaves)} parameters, {n_bytes} B plain "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model})")
+    return params, n_bytes
+
+
+def phase_granite(dev, zcfg):
+    """granite_20b at its published widths, cut to GRANITE_LAYERS layers:
+    the store built on the card against the host's layer-0 blobs, every
+    decoded leaf against its param, the ring at each of TILES against the
+    plain step, a profiler trace, and the ring with the KV tier over
+    KV_PROMPT + KV_GEN positions against the plain step over the untiered
+    cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.configs import get_config
+
+    free_card()
+    cfg = dataclasses.replace(get_config("granite_20b"), n_layers=GRANITE_LAYERS)
+    L = cfg.n_layers
+    t_start = time.perf_counter()
+    params, _ = served_params(dev, cfg, "granite_20b")
+    per_layer = sum(t[0].numel() for t in _util.tree_leaves(params["layers"]))
+    if per_layer != 379_121_920:
+        raise AssertionError(f"granite_20b layer has {per_layer} parameters")
+    store, out = build_served_store(
+        dev, zcfg, cfg, params, "granite", lambda key, i, path: i == 0,
+        [("layers", i) for i in range(L)])
+    # the same store at the published 52 layers, from this run's per-layer bytes
+    sizes = out["store"]
+    sizes["footprint_bytes_52"] = int(52 * store.device_payload_bytes / L + store.static_bytes
+                                      + RING * store.max_layer_raw_bytes)
+    sizes["plain_bytes_52"] = 52 * store.raw_bytes // L + store.static_bytes
+    run_rings(dev, cfg, store, params, "granite", out, SEED + 20)
+    run_kv_tier(dev, zcfg, cfg, store, params, "granite", out, KV_PROMPT, KV_GEN, SEED + 21)
+    shapes = [tuple(ct.shape) for ct in store.manifest("layers", 0)["leaves"]]
+    out["kernels"] = measure_leaf_kernels(
+        dev, store.feeds("layers")[0][shapes.index(W_IN)], params["layers"]["mlp"]["w_in"][0],
+        "granite w_in")
+    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["phase_s"] = time.perf_counter() - t_start
-    log(f"granite phase: {out['phase_s']:.1f} s")
+    log(f"granite phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
     return out
 
 
-def measure_granite_kernels(dev, store, params):
-    """K1 (sync decode, index pass, one-shot decode), K2, K3 and K7 at
-    granite_20b's w_in leaf (6144x24576, 1,152 plane chunks), each beside
-    its bound and its plain version (K1's serial forms have none here: the
-    plain serial decode takes one step a symbol of a chunk, ~60 s a
-    launch)."""
+def leaf_feed(store, key, i, path):
+    """The payload feed of the leaf at ``path`` of layer ``i`` of ``key``."""
+    from repro_torch import _util
+
+    layer = _util.tree_unflatten(store.manifest(key, i)["treedef"],
+                                 list(range(len(store.manifest(key, i)["leaves"]))))
+    j = layer
+    for k in path.split("/"):
+        j = j[k]
+    return store.feeds(key)[i][j]
+
+
+def leaf_of(params, key, i, path):
+    t = params[key]
+    for k in path.split("/"):
+        t = t[k]
+    return t[i]
+
+
+def phase_olmoe(dev, zcfg):
+    """olmoe_1b_7b whole at its published size (16 layers, 64 experts of
+    2048x1024, top-8, routers f32): the store built on the card against
+    the host's encode of layer 0, every leaf of layers 0 and 15 decoded
+    against its param, the ring at each of TILES against the plain step,
+    profiler traces, and K1/K2/K3/K7 at an expert leaf (exactly one K3
+    window and one K7 launch: 256 MiB, 1,024 exponent chunks) and at a
+    router leaf (f32)."""
     import torch
 
+    from repro_torch.configs import get_config
+
+    free_card()
+    cfg = get_config("olmoe_1b_7b")
+    t_start = time.perf_counter()
+    params, n_bytes = served_params(dev, cfg, "olmoe_1b_7b")
+    if n_bytes != 13_842_386_944:
+        raise AssertionError(f"olmoe_1b_7b holds {n_bytes} B")
+    store, out = build_served_store(
+        dev, zcfg, cfg, params, "olmoe", lambda key, i, path: i == 0,
+        [("moe_layers", 0), ("moe_layers", cfg.n_layers - 1)])
+    out["plain_bytes_on_card"] = n_bytes
+    run_rings(dev, cfg, store, params, "olmoe", out, SEED + 30)
+    out["kernels"] = {
+        "expert": measure_leaf_kernels(
+            dev, leaf_feed(store, "moe_layers", 0, "moe/experts/w_gate"),
+            leaf_of(params, "moe_layers", 0, "moe/experts/w_gate"), "olmoe w_gate"),
+        "router": measure_leaf_kernels(
+            dev, leaf_feed(store, "moe_layers", 0, "moe/router/w"),
+            leaf_of(params, "moe_layers", 0, "moe/router/w"), "olmoe router", reps=20),
+    }
+    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"olmoe phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
+    return out
+
+
+def phase_deepseek(dev, zcfg):
+    """deepseek_v2_236b at its published widths, cut in depth to
+    DEEPSEEK_LAYERS (the dense layer and one MoE layer: MLA, 160 experts
+    of 5120x1536, 2 shared): the store built on the card against the
+    host's encode of every leaf but the three expert leaves, every leaf of
+    both layers decoded against its param (the 2,516,582,400-byte expert
+    leaves through K3, K7, K1's index pass and sync decode and K2), the
+    ring at each of TILES and the ring with the MLA KV tier against the
+    plain step, and K1/K2/K3/K7 at the expert leaf (K1's sync decode
+    against its plain version over all 9,600 chunks) and the router."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    free_card()
+    cfg = dataclasses.replace(get_config("deepseek_v2_236b"), n_layers=DEEPSEEK_LAYERS)
+    t_start = time.perf_counter()
+    params, n_bytes = served_params(dev, cfg, "deepseek_v2_236b")
+    if n_bytes != 10_718_996_480:
+        raise AssertionError(f"deepseek_v2_236b x{DEEPSEEK_LAYERS} holds {n_bytes} B")
+    store, out = build_served_store(
+        dev, zcfg, cfg, params, "deepseek",
+        lambda key, i, path: not path.startswith("moe/experts/"),
+        [("dense_layers", 0), ("moe_layers", 0)])
+    out["plain_bytes_on_card"] = n_bytes
+    # the same store at the published 60 layers (1 dense, 59 MoE), from this
+    # run's per-layer bytes
+    sizes = out["store"]
+    moe_payload = sizes["payload_bytes_by_stack"]["moe_layers"]
+    moe_raw = sizes["raw_bytes_by_stack"]["moe_layers"]
+    sizes["footprint_bytes_60"] = (sizes["payload_bytes_by_stack"]["dense_layers"]
+                                   + 59 * moe_payload + store.static_bytes
+                                   + RING * store.max_layer_raw_bytes)
+    sizes["plain_bytes_60"] = (sizes["raw_bytes_by_stack"]["dense_layers"] + 59 * moe_raw
+                               + store.static_bytes)
+    log(f"deepseek at 60 layers from these bytes: footprint (ring {RING}) "
+        f"{sizes['footprint_bytes_60']} B against {sizes['plain_bytes_60']} B plain")
+    run_rings(dev, cfg, store, params, "deepseek", out, SEED + 40)
+    run_kv_tier(dev, zcfg, cfg, store, params, "deepseek", out, DS_KV_PROMPT, DS_KV_GEN,
+                SEED + 41)
+    out["kernels"] = {
+        "expert": measure_leaf_kernels(
+            dev, leaf_feed(store, "moe_layers", 0, "moe/experts/w_gate"),
+            leaf_of(params, "moe_layers", 0, "moe/experts/w_gate"), "deepseek w_gate",
+            plain_prefix=DS_PLAIN_PREFIX, reps=3),
+        "router": measure_leaf_kernels(
+            dev, leaf_feed(store, "moe_layers", 0, "moe/router/w"),
+            leaf_of(params, "moe_layers", 0, "moe/router/w"), "deepseek router", reps=20),
+    }
+    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"deepseek phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
+    return out
+
+
+def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
+    """K1 (sync decode, index pass, one-shot decode), K2, K3 and K7 at one
+    stored leaf: ``feed`` its payload feed, ``x`` its param on the card.
+    Each kernel is timed beside its bound and its plain version and held
+    against it: K1's sync decode over the whole leaf (its serial forms
+    against the sync decode: their plain version takes a step a symbol of
+    a chunk, ~60 s a launch), K2 by the round trip of K3's planes to
+    ``x``, K3 and K7 over the whole leaf, or over its first
+    ``plain_prefix`` elements where the plain versions' int64 keys would
+    not fit beside the model."""
+    import torch
+
+    from repro_torch.core import huffman
     from repro_torch.kernels import (
         bitpack_encode_chunks, bitpack_encode_chunks_plain, huffdecode_chunks,
         huffdecode_chunks_plain, huffdecode_index, huffdecode_serial, plane_consumer,
         plane_consumer_plain, plane_producer, plane_producer_plain,
     )
-    from repro_torch.core import huffman
+    from repro_torch.kernels.fused_plane import ELEM_DTYPES
 
-    shapes = [tuple(ct.shape) for ct in store.manifest("layers", 0)["leaves"]]
-    feed = store.feeds("layers")[0][shapes.index(W_IN)]
+    itemsize = x.element_size()
+    chunk = (256 << 10) // itemsize              # plane chunk of the default 256 KiB chunks
     args = feed.launch_args()
+    if args is None:
+        raise AssertionError(f"the {label} leaf has no Huffman-coded chunk")
     n_out = args.pop("out_bytes")
     sync, sync_off = args.pop("sync"), args.pop("sync_off")
     out, out_p, out_i, out_s = (torch.zeros(n_out, dtype=torch.uint8, device=dev)
@@ -2069,7 +2346,7 @@ def measure_granite_kernels(dev, store, params):
     run = lambda: huffdecode_chunks(**args, out=out, sync=sync, sync_off=sync_off)  # noqa: E731
     index = lambda: huffdecode_index(**args, out=out_i, sync_off=sync_off)  # noqa: E731
     serial = lambda: huffdecode_serial(**args, out=out_s)  # noqa: E731
-    ms = device_ms(run, 10)
+    ms = device_ms(run, reps)
     kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 5)
     plain = []
     plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(
@@ -2085,7 +2362,8 @@ def measure_granite_kernels(dev, store, params):
     if not (torch.equal(out, out_p) and torch.equal(out, out_i) and torch.equal(out, out_s)
             and torch.equal(cur, plain[0]) and torch.equal(cur, cur_i)
             and torch.equal(cur, cur_s) and torch.equal(sync_i, sync)):
-        raise AssertionError("K1 disagrees at the granite w_in leaf")
+        raise AssertionError(f"K1 disagrees at the {label} leaf")
+    del out_p, out_i, out_s, plain
     symbols = int(args["counts"].sum())
     inputs = sum(t.numel() * t.element_size() for t in args.values())
     sync_bytes = sync.numel() * 4 + sync_off.numel() * 8
@@ -2098,63 +2376,77 @@ def measure_granite_kernels(dev, store, params):
                                   "plain_ms": None},
                    "one_shot": {"ms": serial_ms, "kernel_ms_profiler": serial_kernel_ms,
                                 "plain_ms": None}}}
-    log(f"K1 at granite w_in {W_IN}: {rows['K1']['chunks']} chunks, {symbols} symbols; sync "
-        f"decode {ms:.5f} ms (device time alone {kernel_ms}), plain {plain_ms:.2f} ms, bound "
-        f"{b:.6f} ms ({by}, {k1_bytes} B); index pass {index_ms:.4f} ms (device time alone "
-        f"{index_kernel_ms}); one-shot decode {serial_ms:.4f} ms (device time alone "
+    del out
+    log(f"K1 at {label} {tuple(x.shape)}: {rows['K1']['chunks']} chunks, {symbols} symbols; "
+        f"sync decode {ms:.5f} ms (device time alone {kernel_ms}), plain {plain_ms:.2f} ms, "
+        f"bound {b:.6f} ms ({by}, {k1_bytes} B); index pass {index_ms:.4f} ms (device time "
+        f"alone {index_kernel_ms}); one-shot decode {serial_ms:.4f} ms (device time alone "
         f"{serial_kernel_ms})")
 
-    x = params["layers"]["mlp"]["w_in"][0].reshape(-1).view(torch.int16)
+    x = x.reshape(-1).view(ELEM_DTYPES[itemsize])
+    if x.numel() % chunk:                        # zero-padded to whole chunks, as the store pads
+        x = torch.cat([x, x.new_zeros(-x.numel() % chunk)])
     n = x.numel()
-    k3 = lambda: plane_producer(x, itemsize=2, chunk_elems=BF16_CHUNK)  # noqa: E731
-    k3_ms = device_ms(k3, 10)
+    xp = x if plain_prefix is None else x[:plain_prefix]
+    k3 = lambda: plane_producer(x, itemsize=itemsize, chunk_elems=chunk)  # noqa: E731
+    k3_ms = device_ms(k3, reps)
     k3_kernel_ms = profiled_ms(k3, r"(?<!un)plane_kernel", 5)
-    k3_plain_ms = device_ms(lambda: plane_producer_plain(x, itemsize=2, chunk_elems=BF16_CHUNK), 1)
+    k3_plain_ms = device_ms(lambda: plane_producer_plain(xp, itemsize=itemsize,
+                                                         chunk_elems=chunk), 1)
     planes, hists = k3()
-    pp, hp = plane_producer_plain(x, itemsize=2, chunk_elems=BF16_CHUNK)
-    if not (torch.equal(planes, pp) and torch.equal(hists, hp)):
-        raise AssertionError("K3 disagrees at the granite w_in leaf")
+    pp, hp = plane_producer_plain(xp, itemsize=itemsize, chunk_elems=chunk)
+    m = xp.numel()
+    if not (torch.equal(planes[:, :m], pp) and torch.equal(hists[:m // chunk], hp)):
+        raise AssertionError(f"K3 disagrees at the {label} leaf")
     del pp, hp
-    k3_bytes = 2 * n + 2 * n + (n // BF16_CHUNK) * 2 * 256 * 4
-    b, by = bound_ms(k3_bytes, K3_OPS_PER_ELEMENT[2] * n)
+    k3_bytes = itemsize * n * 2 + (n // chunk) * itemsize * 256 * 4
+    b, by = bound_ms(k3_bytes, K3_OPS_PER_ELEMENT[itemsize] * n)
     rows["K3"] = {"ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": b, "bound_by": by,
-                  "kernel_ms_profiler": k3_kernel_ms, "bytes": k3_bytes}
+                  "kernel_ms_profiler": k3_kernel_ms, "bytes": k3_bytes, "plain_elems": m}
 
-    pl = [planes[0].contiguous(), planes[1].contiguous()]
-    k2 = lambda: plane_consumer(pl, itemsize=2)  # noqa: E731
-    k2_ms = device_ms(k2, 10)
+    pl = [planes[p].contiguous() for p in range(itemsize)]
+    del planes
+    k2 = lambda: plane_consumer(pl, itemsize=itemsize)  # noqa: E731
+    k2_ms = device_ms(k2, reps)
     k2_kernel_ms = profiled_ms(k2, r"unplane_kernel", 5)
-    k2_plain_ms = device_ms(lambda: plane_consumer_plain(pl, itemsize=2), 1)
-    if not (torch.equal(k2(), x) and torch.equal(plane_consumer_plain(pl, itemsize=2), x)):
-        raise AssertionError("K2 disagrees at the granite w_in leaf")
-    b, by = bound_ms(4 * n, K2_OPS_PER_ELEMENT * n)
+    pl_p = [q[:m] for q in pl]
+    k2_plain_ms = device_ms(lambda: plane_consumer_plain(pl_p, itemsize=itemsize), 1)
+    if not (torch.equal(k2(), x) and torch.equal(plane_consumer_plain(pl_p, itemsize=itemsize),
+                                                 xp)):
+        raise AssertionError(f"K2 disagrees at the {label} leaf")
+    b, by = bound_ms(2 * itemsize * n, K2_OPS_PER_ELEMENT * n)
     rows["K2"] = {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": b, "bound_by": by,
-                  "kernel_ms_profiler": k2_kernel_ms, "bytes": 4 * n}
+                  "kernel_ms_profiler": k2_kernel_ms, "bytes": 2 * itemsize * n,
+                  "plain_elems": m}
 
     exp = pl[0]
+    del pl, pl_p
     lens = huffman.code_lengths(torch.bincount(exp, minlength=256).cpu().numpy() + 1)
     tabs = [torch.from_numpy(np.asarray(t, dtype=np.int32)[None]).to(dev)
             for t in (lens, huffman.canonical_codes(lens))]
-    c = n // BF16_CHUNK
+    c = n // chunk
+    cp = m // chunk
     pids = torch.zeros(c, dtype=torch.int32, device=dev)
-    k7 = lambda: bitpack_encode_chunks(exp, pids, *tabs, chunk_syms=BF16_CHUNK)  # noqa: E731
-    k7_ms = device_ms(k7, 10)
+    k7 = lambda: bitpack_encode_chunks(exp, pids, *tabs, chunk_syms=chunk)  # noqa: E731
+    k7_ms = device_ms(k7, reps)
     k7_kernel_ms = profiled_ms(k7, r"bitpack_kernel", 5)
-    k7_plain_ms = device_ms(
-        lambda: bitpack_encode_chunks_plain(exp, pids, *tabs, chunk_syms=BF16_CHUNK), 1)
+    k7_plain_ms = device_ms(lambda: bitpack_encode_chunks_plain(
+        exp[:m], pids[:cp], *tabs, chunk_syms=chunk), 1)
     words, nbits = k7()
-    wp, np_ = bitpack_encode_chunks_plain(exp, pids, *tabs, chunk_syms=BF16_CHUNK)
-    if not (torch.equal(words, wp) and torch.equal(nbits, np_)) or int(nbits.min()) <= 0:
-        raise AssertionError("K7 disagrees at the granite w_in leaf")
+    wp, np_ = bitpack_encode_chunks_plain(exp[:m], pids[:cp], *tabs, chunk_syms=chunk)
+    if (not (torch.equal(words[:cp], wp) and torch.equal(nbits[:cp], np_))
+            or int(nbits.min()) <= 0):
+        raise AssertionError(f"K7 disagrees at the {label} leaf")
     del wp, np_
     k7_bytes = n + words.numel() * 4 + 4 * c + 4 * c + 2 * 4 * 256
     b, by = bound_ms(k7_bytes, K7_OPS_PER_SYMBOL * n)
     rows["K7"] = {"ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": b, "bound_by": by,
                   "kernel_ms_profiler": k7_kernel_ms, "bytes": k7_bytes, "chunks": c,
-                  "segments": c * (BF16_CHUNK // 8192), "bits": int(nbits.sum())}
+                  "segments": c * (-(-chunk // 8192)), "bits": int(nbits.sum()),
+                  "plain_chunks": cp}
     for k in ("K2", "K3", "K7"):
         r = rows[k]
-        log(f"{k} at granite w_in {W_IN}: kernel {r['ms']:.5f} ms (device time alone "
+        log(f"{k} at {label} {tuple(feed.shape)}: kernel {r['ms']:.5f} ms (device time alone "
             f"{r['kernel_ms_profiler']}), plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} B)")
     return rows
@@ -2209,7 +2501,24 @@ def main() -> int:
     # this slice's path: granite_20b at its published widths, tiles, KV tier
     granite = phase_granite(dev, zcfg)
     gk, gl = granite["kernels"], granite["launches"]
+    # this slice's paths: the MoE family, olmoe_1b_7b whole and
+    # deepseek_v2_236b at its published widths
+    moe = {"olmoe": phase_olmoe(dev, zcfg), "deepseek": phase_deepseek(dev, zcfg)}
+    for label, ph in moe.items():
+        need = ["plane_producer", "bitpack_encode_chunks", "huffdecode_index",
+                "huffdecode_chunks", "plane_consumer"]
+        if "kv" in ph:
+            need.append("huffdecode_serial")
+        idle = [k for k in need if not ph["launches"].get(k)]
+        if idle:
+            raise AssertionError(f"{label}: kernels of the path never launched: {idle}")
     reset_launch_counts()
+
+    def moe_rows(k, counter):
+        """Kernel ``k``'s readings and launches on the two MoE paths."""
+        return {label: {"launches": ph["launches"].get(counter, 0),
+                        "expert": ph["kernels"]["expert"][k],
+                        "router": ph["kernels"]["router"][k]} for label, ph in moe.items()}
 
     # Every row's ms is device_ms (L2 evicted before each call) and its
     # kernel_ms_profiler the kernel's device time alone.
@@ -2235,7 +2544,10 @@ def main() -> int:
                       "ms": k1["serial_ms"], "kernel_ms_profiler": k1["serial_kernel_ms_profiler"]},
          "granite": dict(gk["K1"], launches=gl["huffdecode_chunks"], shape=W_IN,
                          index_pass=dict(gk["K1"]["index_pass"], launches=gl["huffdecode_index"]),
-                         one_shot=dict(gk["K1"]["one_shot"], launches=gl["huffdecode_serial"]))},
+                         one_shot=dict(gk["K1"]["one_shot"], launches=gl["huffdecode_serial"])),
+         "moe": {label: dict(r, index_pass_launches=moe[label]["launches"]["huffdecode_index"],
+                             one_shot_launches=moe[label]["launches"]["huffdecode_serial"])
+                 for label, r in moe_rows("K1", "huffdecode_chunks").items()}},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
@@ -2245,7 +2557,8 @@ def main() -> int:
          "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4],
          "launches_file": files["launches"]["plane_consumer"],
          "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"],
-         "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN)},
+         "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN),
+         "moe": moe_rows("K2", "plane_consumer")},
         {"name": "plane_producer", "route": "cuda",
          "source": "src/repro_torch/csrc/plane.cu",
          "replaces": "src/repro/kernels/fused_plane.py:52",
@@ -2256,7 +2569,8 @@ def main() -> int:
          "kernel_ms_profiler": k3["kernel_ms_profiler"], "variants": k3_rows,
          "launches_file": files["launches"]["plane_producer"],
          "launches_checkpoint_save": ckpt["save_launches"]["plane_producer"],
-         "granite": dict(gk["K3"], launches=gl["plane_producer"], shape=W_IN)},
+         "granite": dict(gk["K3"], launches=gl["plane_producer"], shape=W_IN),
+         "moe": moe_rows("K3", "plane_producer")},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",
@@ -2266,7 +2580,8 @@ def main() -> int:
          "library_ms": None, "library": no_library, "kernel_ms_profiler": k7[4],
          "launches_file": files["launches"]["bitpack_encode_chunks"],
          "launches_checkpoint_save": ckpt["save_launches"]["bitpack_encode_chunks"],
-         "granite": dict(gk["K7"], launches=gl["bitpack_encode_chunks"], shape=W_IN)},
+         "granite": dict(gk["K7"], launches=gl["bitpack_encode_chunks"], shape=W_IN),
+         "moe": moe_rows("K7", "bitpack_encode_chunks")},
     ]
     # The ops kernels: launches are those of the ops path over the 108
     # leaves; times from measure_ops (K4/K11 list both widths, K5 both
@@ -2303,6 +2618,9 @@ def main() -> int:
         if len(replaces) > 1:
             entry["replaces_also"] = [f"src/repro/kernels/{r}" for r in replaces[1:]]
         kernels.append(entry)
+    for label, ph in moe.items():
+        log(f"{label} summary: " + json.dumps({k: v for k, v in ph.items()
+                                               if k not in ("kernels", "trace")}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

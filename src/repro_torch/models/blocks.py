@@ -1,4 +1,4 @@
-"""Transformer block composition for decode (dense family).
+"""Transformer block composition for decode (dense and MoE families).
 
 Blocks are plain functions over nested-dict params, so the serving ring
 can hand each call a freshly decoded layer.
@@ -8,9 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from . import attention, layers
+from . import attention, layers, moe
 
-__all__ = ["norm_apply", "mlp_apply", "dense_block_decode"]
+__all__ = ["norm_apply", "mlp_apply", "dense_block_decode", "moe_block_decode"]
 
 
 def norm_apply(cfg, p, x):
@@ -22,17 +22,33 @@ def mlp_apply(cfg, p, x):
     return (layers.gelu_mlp if cfg.mlp == "gelu" else layers.swiglu)(p, x)
 
 
-def dense_block_decode(p, x, caches, pos, cfg):
-    if cfg.mla:
-        raise NotImplementedError("MLA attention is not ported yet")
+def _attend(p, x, caches, pos, cfg):
+    """Attention norm and GQA or MLA decode: (x + a in f32, new caches)."""
     h = norm_apply(cfg, p["attn_norm"], x)
-    a, ck, cv = attention.gqa_decode(p["attn"], h, caches[0], caches[1], pos, cfg)
+    fn = attention.mla_decode if cfg.mla else attention.gqa_decode
+    a, c0, c1 = fn(p["attn"], h, caches[0], caches[1], pos, cfg)
     # The reference's compiled step (default XLA flags) feeds the MLP norm
     # the f32 sum x + a, dropping the bf16 round of the residual before the
     # norm's f32 cast (its HLO: the f32 ``add`` of ``copy_add_fusion`` goes
     # straight to the norm's ``multiply`` and ``reduce-window``); the
     # residual stream itself is rounded, as the next ``add`` consumes it.
-    xs = x.to(torch.float32) + a                # a widens inside the add, exactly
+    # The MoE block's HLO has the same fusion.
+    return x.to(torch.float32) + a, (c0, c1)    # a widens inside the add, exactly
+
+
+def dense_block_decode(p, x, caches, pos, cfg):
+    xs, new_caches = _attend(p, x, caches, pos, cfg)
     h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
     x = xs.to(x.dtype) + mlp_apply(cfg, p["mlp"], h)
-    return x, (ck, cv)
+    return x, new_caches
+
+
+def moe_block_decode(p, x, caches, pos, cfg):
+    """Attention, then the routed (and shared) experts; the aux loss is
+    not computed.  The output rounds as the HLO's ``add_convert_fusion``:
+    ``bf16(bf16(x + a) + y)``, ``y`` the bf16 expert mix (plus the bf16
+    shared output, added and rounded first)."""
+    xs, new_caches = _attend(p, x, caches, pos, cfg)
+    h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
+    x = xs.to(x.dtype) + moe.moe_apply(p["moe"], h, cfg)
+    return x, new_caches

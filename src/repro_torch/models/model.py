@@ -1,14 +1,16 @@
-"""Decode state and the one-token decode step for the dense family.
+"""Decode state and the one-token decode step for the dense and MoE
+families.
 
 A port of ``repro.models.model``'s ``init_decode_state``, ``decode_step``
 and ``_slot_write`` as plain functions of ``(cfg, params, ...)``: the
 layer loop is a Python loop over the stacked params' leading axis (the
-reference scans it), and the cache slot write happens once after it.
+reference scans it) — ``dense_layers`` then ``moe_layers`` for the MoE
+family — and the cache slot write happens once after it, for all layers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -16,7 +18,11 @@ from .. import _util
 from . import attention, blocks, layers
 
 __all__ = [
+    "block_fn",
+    "layer_plan",
+    "cache_keys",
     "param_shapes",
+    "param_dtypes",
     "init_params",
     "cache_len",
     "init_decode_state",
@@ -26,56 +32,113 @@ __all__ = [
 ]
 
 
+def block_fn(kind: str) -> Callable:
+    """The block function of a layer kind, shared by every layer of a
+    stack (looked up at each call, so a patched ``blocks`` function is
+    the one that runs)."""
+    return {"dense": blocks.dense_block_decode, "moe": blocks.moe_block_decode}[kind]
+
+
 def _check_family(cfg) -> None:
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only: no decode state")
-    if cfg.family != "dense" or cfg.mla:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            f"{' with MLA' if cfg.mla else ''} is not ported yet"
+            f"{cfg.name}: family {cfg.family!r} is not ported yet"
         )
 
 
-def param_shapes(cfg) -> Dict[str, Any]:
-    """The dense family's param tree as shapes, in the reference's layout
-    (stacked layers on the leading axis, ``{"w": (d_in, d_out)}``)."""
+def layer_plan(cfg) -> List[Tuple[str, int, str]]:
+    """[(stack_key, layer_index, block_kind)] in decode order."""
     _check_family(cfg)
-    L, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
+    if cfg.family == "moe":
+        fk = cfg.first_k_dense
+        return [("dense_layers", i, "dense") for i in range(fk)] + [
+            ("moe_layers", i, "moe") for i in range(cfg.n_layers - fk)
+        ]
+    return [("layers", i, "dense") for i in range(cfg.n_layers)]
+
+
+def cache_keys(cfg) -> Tuple[str, str]:
+    """The decode state's two stacked caches, in block-call order."""
+    return ("mla_ckv", "mla_kr") if cfg.mla else ("kv_k", "kv_v")
+
+
+def param_shapes(cfg) -> Dict[str, Any]:
+    """The param tree as shapes, in the reference's layout (stacked
+    layers on the leading axis, ``{"w": (d_in, d_out)}``): ``layers`` for
+    the dense family, ``dense_layers`` (``first_k_dense`` of them, MLP
+    width ``dense_d_ff``) and ``moe_layers`` for the MoE family."""
+    _check_family(cfg)
+    d, hd = cfg.d_model, cfg.head_dim
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
 
-    def dense(d_in, d_out, bias=False):
-        p = {"w": (L, d_in, d_out)}
-        if bias:
-            p["b"] = (L, d_out)
-        return p
-
-    def norm(stacked=True):
-        lead = (L,) if stacked else ()
-        p = {"g": lead + (d,)}
+    def norm(lead, width=d):
+        p = {"g": lead + (width,)}
         if cfg.norm == "layernorm":
-            p["b"] = lead + (d,)
+            p["b"] = lead + (width,)
         return p
 
-    ff = cfg.d_ff
-    if cfg.mlp == "gelu":
-        mlp = {"w_in": (L, d, ff), "b_in": (L, ff), "w_out": (L, ff, d), "b_out": (L, d)}
+    def dense(lead, d_in, d_out, bias=False):
+        p = {"w": lead + (d_in, d_out)}
+        if bias:
+            p["b"] = lead + (d_out,)
+        return p
+
+    def attn(lead):
+        if not cfg.mla:
+            return {
+                "wq": dense(lead, d, qd, cfg.qkv_bias),
+                "wk": dense(lead, d, kvd, cfg.qkv_bias),
+                "wv": dense(lead, d, kvd, cfg.qkv_bias),
+                "wo": dense(lead, qd, d),
+            }
+        H, r = cfg.n_heads, cfg.kv_lora_rank
+        return {
+            "w_dq": dense(lead, d, cfg.q_lora_rank),
+            "q_norm": {"g": lead + (cfg.q_lora_rank,)},
+            "w_uq": dense(lead, cfg.q_lora_rank, H * (cfg.qk_nope_dim + cfg.qk_rope_dim)),
+            "w_dkv": dense(lead, d, r),
+            "kv_norm": {"g": lead + (r,)},
+            "w_uk": dense(lead, r, H * cfg.qk_nope_dim),
+            "w_uv": dense(lead, r, H * cfg.v_head_dim),
+            "w_kr": dense(lead, d, cfg.qk_rope_dim),
+            "wo": dense(lead, H * cfg.v_head_dim, d),
+        }
+
+    def swiglu(lead, ff):
+        return {"w_gate": lead + (d, ff), "w_up": lead + (d, ff), "w_down": lead + (ff, d)}
+
+    def mlp(lead, ff):
+        if cfg.mlp == "gelu":
+            return {"w_in": lead + (d, ff), "b_in": lead + (ff,),
+                    "w_out": lead + (ff, d), "b_out": lead + (d,)}
+        return swiglu(lead, ff)
+
+    def block(n, ff=None):
+        lead = (n,)
+        p = {"attn_norm": norm(lead), "attn": attn(lead), "mlp_norm": norm(lead)}
+        if ff is not None:
+            p["mlp"] = mlp(lead, ff)
+            return p
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        p["moe"] = {
+            "router": {"w": lead + (d, E)},
+            "experts": swiglu(lead + (E,), f),
+        }
+        if cfg.n_shared_experts:
+            p["moe"]["shared"] = swiglu(lead, f * cfg.n_shared_experts)
+        return p
+
+    shapes: Dict[str, Any] = {"embed": {"table": (cfg.vocab_size, d)}}
+    if cfg.family == "moe":
+        fk = cfg.first_k_dense
+        if fk:
+            shapes["dense_layers"] = block(fk, cfg.dense_d_ff)
+        shapes["moe_layers"] = block(cfg.n_layers - fk)
     else:
-        mlp = {"w_gate": (L, d, ff), "w_up": (L, d, ff), "w_down": (L, ff, d)}
-    shapes: Dict[str, Any] = {
-        "embed": {"table": (cfg.vocab_size, d)},
-        "layers": {
-            "attn_norm": norm(),
-            "attn": {
-                "wq": dense(d, qd, cfg.qkv_bias),
-                "wk": dense(d, kvd, cfg.qkv_bias),
-                "wv": dense(d, kvd, cfg.qkv_bias),
-                "wo": dense(qd, d),
-            },
-            "mlp_norm": norm(),
-            "mlp": mlp,
-        },
-        "final_norm": norm(stacked=False),
-    }
+        shapes["layers"] = block(cfg.n_layers, cfg.d_ff)
+    shapes["final_norm"] = norm(())
     if cfg.pos_embedding == "learned":
         shapes["pos"] = {"table": (cfg.max_position, d)}
     if not cfg.tie_embeddings:
@@ -83,21 +146,35 @@ def param_shapes(cfg) -> Dict[str, Any]:
     return shapes
 
 
+def param_dtypes(cfg) -> Dict[str, Any]:
+    """:func:`param_shapes`' tree with each leaf's dtype: ``cfg.dtype``,
+    but f32 for the MoE routers, as the reference's ``init_moe`` makes
+    them."""
+
+    def walk(node, path):
+        if isinstance(node, dict):               # shape tuples are the leaves
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return torch.float32 if path[-2:] == ("router", "w") else cfg.dtype
+
+    return walk(param_shapes(cfg), ())
+
+
 def init_params(cfg, seed: int = 0, *, device: Any = "cuda") -> Dict[str, Any]:
-    """Random bf16 params in :func:`param_shapes`' tree: every leaf
-    ``standard_normal * 0.02``, drawn on ``device`` by a generator seeded
-    with ``seed``, leaf by leaf in sorted-key order.  For serving without a
+    """Random params in :func:`param_shapes`' tree: every leaf
+    ``standard_normal * 0.02`` in its :func:`param_dtypes` dtype (bf16;
+    the MoE routers f32), drawn on ``device`` by a generator seeded with
+    ``seed``, leaf by leaf in sorted-key order.  For serving without a
     checkpoint; the draw differs from the reference's ``Model.init``."""
     dev = _util.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def draw(node):
+    def draw(node, dt):
         if isinstance(node, dict):               # shape tuples are the leaves
-            return {k: draw(node[k]) for k in sorted(node)}
+            return {k: draw(node[k], dt[k]) for k in sorted(node)}
         x = torch.randn(node, generator=gen, dtype=torch.float32, device=dev)
-        return (x * 0.02).to(cfg.dtype)
+        return (x * 0.02).to(dt)
 
-    return draw(param_shapes(cfg))
+    return draw(param_shapes(cfg), param_dtypes(cfg))
 
 
 def cache_len(cfg, seq_len: int) -> int:
@@ -119,12 +196,14 @@ def init_decode_state(
     dev = _util.resolve_device(device)
     L = cache_len(cfg, seq_len)
     sp = seq_len if start_pos is None else start_pos
-    kv = attention.init_kv_cache(cfg, batch, L, cfg.n_layers, dev)
-    return {
-        "pos": torch.tensor(sp, dtype=torch.int32, device=dev),
-        "kv_k": kv.k,
-        "kv_v": kv.v,
-    }
+    state = {"pos": torch.tensor(sp, dtype=torch.int32, device=dev)}
+    if cfg.mla:
+        c = attention.init_mla_cache(cfg, batch, L, cfg.n_layers, dev)
+        state.update({"mla_ckv": c["c_kv"], "mla_kr": c["k_rope"]})
+    else:
+        kv = attention.init_kv_cache(cfg, batch, L, cfg.n_layers, dev)
+        state.update({"kv_k": kv.k, "kv_v": kv.v})
+    return state
 
 
 def decode_front(cfg, params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -148,21 +227,21 @@ def decode_step(
     cfg, params, state: Dict[str, Any], tokens: torch.Tensor
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence. tokens: (B, 1) int32 → f32 logits."""
-    _check_family(cfg)
+    plan = layer_plan(cfg)
     pos = state["pos"]
     x = decode_front(cfg, params, tokens, pos)
-    c0, c1 = state["kv_k"], state["kv_v"]
+    k0, k1 = cache_keys(cfg)
+    c0, c1 = state[k0], state[k1]
     slot = pos % c0.shape[2]
-    stack = params["layers"]
     outs0, outs1 = [], []
-    for i in range(cfg.n_layers):
-        lp = _util.tree_map(lambda a, i=i: a[i], stack)
-        x, (u0, u1) = blocks.dense_block_decode(lp, x, (c0[i], c1[i]), pos, cfg)
+    for j, (key, i, kind) in enumerate(plan):
+        lp = _util.tree_map(lambda a, i=i: a[i], params[key])
+        x, (u0, u1) = block_fn(kind)(lp, x, (c0[j], c1[j]), pos, cfg)
         outs0.append(u0)
         outs1.append(u1)
     new_state = dict(state)
-    new_state["kv_k"] = _slot_write(c0, torch.stack(outs0), slot)
-    new_state["kv_v"] = _slot_write(c1, torch.stack(outs1), slot)
+    new_state[k0] = _slot_write(c0, torch.stack(outs0), slot)
+    new_state[k1] = _slot_write(c1, torch.stack(outs1), slot)
     new_state["pos"] = pos + 1
     return decode_tail(cfg, params, x), new_state
 

@@ -38,9 +38,9 @@ __all__ = ["DEFAULT_STACK_KEYS", "CompressedParamStore"]
 
 PyTree = Any
 
-# Stacked-layer top-level keys (leading axis = layer).  The dense family's
-# one stack; the MoE family's keys join when that family is ported.
-DEFAULT_STACK_KEYS: Tuple[str, ...] = ("layers",)
+# Stacked-layer top-level keys (leading axis = layer), the reference's:
+# the dense family's one stack and the MoE family's two.
+DEFAULT_STACK_KEYS: Tuple[str, ...] = ("layers", "dense_layers", "moe_layers")
 
 
 class CompressedParamStore:

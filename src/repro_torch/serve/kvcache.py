@@ -38,8 +38,9 @@ from ..core.options import CodecOptions, resolve_options
 
 __all__ = ["GQA_KEYS", "MLA_KEYS", "KVCacheStore"]
 
-# Stacked attention-cache keys, in block-call order: (c0, c1).  MLA's pair
-# is the reference's; the port has no MLA model yet.
+# Stacked attention-cache keys, in block-call order: (c0, c1).  MLA's
+# pair holds the latent (B, L, kv_lora_rank) and the shared rope key
+# (B, L, qk_rope_dim).
 GQA_KEYS: Tuple[str, str] = ("kv_k", "kv_v")
 MLA_KEYS: Tuple[str, str] = ("mla_ckv", "mla_kr")
 

@@ -14,13 +14,14 @@ just ahead of compute.
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from .. import _util
-from ..models import blocks
-from ..models.model import decode_front, decode_step, decode_tail, _slot_write
+from ..models.model import (
+    block_fn, cache_keys, decode_front, decode_step, decode_tail, layer_plan, _slot_write,
+)
 
 __all__ = [
     "make_serve_step",
@@ -39,19 +40,14 @@ def make_serve_step(cfg) -> Callable:
     return serve_step
 
 
-def _layer_plan(cfg) -> List[Tuple[str, int]]:
-    """[(stack_key, layer_index)] in decode order (dense family)."""
-    return [("layers", i) for i in range(cfg.n_layers)]
-
-
-def _check_dense(cfg) -> None:
-    """The reference's rejections, then the port's: only the dense GQA
-    family has a decode step here."""
+def _check_served(cfg) -> None:
+    """The reference's rejection (no decode path), then the port's: the
+    families not ported yet (ssm, hybrid, vlm, audio)."""
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} has no decode path")
-    if cfg.family != "dense" or cfg.mla:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported to the serving steps"
+            f"{cfg.name}: family {cfg.family!r} is not ported to the serving steps yet"
         )
 
 
@@ -66,20 +62,20 @@ def make_kv_tiered_serve_step(cfg, params, kv_store) -> Callable:
     so the logits are bit-identical to :func:`~repro_torch.models.
     decode_step` over the untiered cache.
     """
-    _check_dense(cfg)
+    _check_served(cfg)
     if kv_store.n_layers != cfg.n_layers:
         raise ValueError(
             f"kv_store holds {kv_store.n_layers} layers, model {cfg.name} has {cfg.n_layers}"
         )
-    plan = _layer_plan(cfg)
+    plan = layer_plan(cfg)
 
     def serve_step(tokens):
         pos = torch.tensor(kv_store.pos, dtype=torch.int32, device=kv_store.device)
         x = decode_front(cfg, params, tokens, pos)
         outs0, outs1 = [], []
-        for j, (key, i) in enumerate(plan):
+        for j, (key, i, kind) in enumerate(plan):
             lp = _util.tree_map(lambda a, i=i: a[i], params[key])
-            x, (u0, u1) = blocks.dense_block_decode(lp, x, kv_store.layer_caches(j), pos, cfg)
+            x, (u0, u1) = block_fn(kind)(lp, x, kv_store.layer_caches(j), pos, cfg)
             outs0.append(u0)
             outs1.append(u1)
         kv_store.append(torch.stack(outs0), torch.stack(outs1))
@@ -117,36 +113,50 @@ def make_compressed_serve_step(
     On a CUDA store, decodes run on a side stream: the next jobs' K1/K2
     launches are enqueued there before a layer's compute is enqueued on
     the current stream, an event orders each layer's (or tile's) compute
-    after its decode, and ``record_stream`` keeps the decoded buffers
-    alive until that compute is done.  On the CPU the same schedule runs
-    in order.  ``prefetch=False`` decodes each job on demand.  Logits are
+    after its decode, and the decoded buffers stay referenced until an
+    event after that compute has passed on the card; a new decode first
+    waits until fewer than ``ring`` computed layers are held, so the host
+    runs at most ``ring`` layers ahead of the card.  (With
+    ``record_stream`` instead, the host enqueued step after step and the
+    decoded layers of several steps stayed allocated at once: on an 80 GB
+    H100, deepseek_v2_236b's 8.6 GB of layers a step ran the card out of
+    memory.)  On the CPU the same schedule runs in order.
+    ``prefetch=False`` decodes each job on demand.  Logits are
     bit-identical to :func:`repro_torch.models.decode_step`.
     """
-    _check_dense(cfg)
+    _check_served(cfg)
     if ring < 1:
         raise ValueError(f"ring must be >= 1, got {ring}")
     if tiles < 1:
         raise ValueError(f"tiles must be >= 1, got {tiles}")
-    plan = _layer_plan(cfg)
-    if store.n_layers("layers") != len(plan):
-        raise ValueError(
-            f"store stack 'layers' holds {store.n_layers('layers')} layers, "
-            f"model {cfg.name} needs {len(plan)}"
-        )
+    plan = layer_plan(cfg)
+    for key in dict.fromkeys(k for k, _, _ in plan):
+        want = sum(1 for k, _, _ in plan if k == key)
+        if store.n_layers(key) != want:
+            raise ValueError(
+                f"store stack {key!r} holds {store.n_layers(key)} layers, "
+                f"model {cfg.name} needs {want}"
+            )
     if kv_store is not None and kv_store.n_layers != len(plan):
         raise ValueError(
             f"kv_store holds {kv_store.n_layers} layers, model {cfg.name} has {len(plan)}"
         )
+    k0, k1 = cache_keys(cfg)
     dev = store.device
     # Ring depth in decode jobs: whole layers (tiles == 1) or tile slots;
     # either way ring - 1 layers' worth of decode ahead of compute.
     n_jobs = len(plan) * tiles
     depth = (ring - 1) * tiles if prefetch else 0
     side = torch.cuda.Stream(dev) if (dev.type == "cuda" and depth) else None
+    # Decoded layers whose compute is enqueued, each with an event at its
+    # end on the compute stream.  Their buffers (allocated on the side
+    # stream) are dropped only once the card is past that event, and a new
+    # decode first waits until fewer than ``ring`` of them are held.
+    held: deque = deque()
 
     def _run(n: int):
         j, t = divmod(n, tiles)
-        key, i = plan[j]
+        key, i, _ = plan[j]
         if tiles == 1:
             return store.decode_layer(key, i)
         return store.decode_layer_tile(key, i, t, tiles)
@@ -154,27 +164,30 @@ def make_compressed_serve_step(
     def _decode(n: int):
         if side is None:
             return _run(n), None
+        while held and (len(held) >= ring or held[0][0].query()):
+            held.popleft()[0].synchronize()
         with torch.cuda.stream(side):
             out = _run(n)
-            done = torch.cuda.Event()
-            done.record(side)
-        return out, done
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return out, ready
 
     def _take(job):
-        out, done = job
-        if done is not None:
-            cur = torch.cuda.current_stream(dev)
-            cur.wait_event(done)
-            for t in _util.tree_leaves(out):
-                t.record_stream(cur)
+        out, ready = job
+        if ready is not None:
+            torch.cuda.current_stream(dev).wait_event(ready)
         return out
 
-    def _release(key: str, i: int) -> None:
+    def _release(key: str, i: int, lp) -> None:
         if tiles == 1:
             store.release(key, i)
         else:
             for t in range(tiles):
                 store.release_tile(key, i, t, tiles)
+        if side is not None:
+            end = torch.cuda.Event()
+            end.record(torch.cuda.current_stream(dev))
+            held.append((end, lp))
 
     def serve_step(state, tokens):
         pos = state["pos"]
@@ -206,26 +219,26 @@ def make_compressed_serve_step(
             arrays: Dict[int, Any] = {}
             for t in range(tiles):
                 arrays.update(next_job(j * tiles + t))
-            key, i = plan[j]
+            key, i, _ = plan[j]
             return store.layer_unflatten(key, i, [arrays[k] for k in sorted(arrays)])
 
         pump()
         if kv_store is None:
-            c0, c1 = state["kv_k"], state["kv_v"]
+            c0, c1 = state[k0], state[k1]
             slot = pos % c0.shape[2]
         outs0, outs1 = [], []
-        for j, (key, i) in enumerate(plan):
+        for j, (key, i, kind) in enumerate(plan):
             lp = layer_params(j)
             caches = (c0[j], c1[j]) if kv_store is None else kv_store.layer_caches(j)
-            x, (u0, u1) = blocks.dense_block_decode(lp, x, caches, pos, cfg)
-            _release(key, i)
+            x, (u0, u1) = block_fn(kind)(lp, x, caches, pos, cfg)
+            _release(key, i, lp)
             outs0.append(u0)
             outs1.append(u1)
         new_state = dict(state)
         n0, n1 = torch.stack(outs0), torch.stack(outs1)
         if kv_store is None:        # the single slot write, as decode_step
-            new_state["kv_k"] = _slot_write(c0, n0, slot)
-            new_state["kv_v"] = _slot_write(c1, n1, slot)
+            new_state[k0] = _slot_write(c0, n0, slot)
+            new_state[k1] = _slot_write(c1, n1, slot)
         else:
             kv_store.append(n0, n1)
         new_state["pos"] = pos + 1

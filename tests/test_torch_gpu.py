@@ -1068,3 +1068,139 @@ def test_tiered_ring_on_card(cuda):
             for b, ct in enumerate(kv.cold_blocks(key, j)):
                 block = state[key][j][:, 2 * b : 2 * b + 2].contiguous().cpu()
                 assert ct.blob == zipnn.compress_array(block, zcfg, options=HOST).blob
+
+
+# -- the MoE family (olmoe_1b_7b, deepseek_v2_236b) -----------------------------
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "deepseek_v2_236b"])
+def test_moe_decode_on_card_matches_the_cpu(cuda, name):
+    """The MoE decode step on the card against its CPU run on the same
+    params: the same experts chosen (the router a full f32 product, TF32
+    off), logits within 1e-4 of the largest."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(name).reduced()
+    params = init_params(cfg, 0, device="cpu")
+    card = _util.tree_map(lambda a: a.to(cuda), params)
+    layer = _util.tree_map(lambda a: a[0], params["moe_layers"]["moe"])
+    xt = (torch.randn(16, cfg.d_model, generator=torch.Generator().manual_seed(1))
+          ).to(torch.bfloat16)
+    g0, i0 = moe.route(layer, xt, cfg)
+    g1, i1 = moe.route(_util.tree_map(lambda a: a.to(cuda), layer), xt.to(cuda), cfg)
+    assert torch.equal(i0, i1.cpu()) and torch.allclose(g0, g1.cpu(), rtol=1e-6, atol=0)
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 2, 1)).astype(np.int32))
+    sa = init_decode_state(cfg, 2, 4, start_pos=0, device="cpu")
+    sb = init_decode_state(cfg, 2, 4, start_pos=0, device=cuda)
+    for t in toks:
+        la, sa = decode_step(cfg, params, sa, t)
+        lb, sb = decode_step(cfg, card, sb, t.to(cuda))
+        assert (la - lb.cpu()).abs().max() <= 1e-4 * la.abs().max()
+
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "deepseek_v2_236b"])
+def test_moe_ring_on_card_with_the_f32_router(cuda, name):
+    """The MoE store built on the card (both stacks for deepseek), its f32
+    router leaves decoded every ring step through K2's 4-byte path: the
+    ring at tiles 1 and 2 bit-identical to the plain step, and each
+    decoded router equal to its param."""
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(name).reduced()
+    params = init_params(cfg, 0, device=cuda)
+    zcfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 15, backend="huffman")   # K3's least chunk
+    store = CompressedParamStore.from_params(
+        params, zcfg, options=CodecOptions(backend="device"), payload_feed=True)
+    assert store.stack_keys == tuple(k for k in ("dense_layers", "moe_layers") if k in params)
+    router = store.decode_layer("moe_layers", 0)["moe"]["router"]["w"]
+    store.release("moe_layers", 0)
+    assert router.dtype == torch.float32 and router.is_cuda
+    assert torch.equal(router.view(torch.int32),
+                       params["moe_layers"]["moe"]["router"]["w"][0].view(torch.int32))
+    steps = 6
+    toks = torch.from_numpy(
+        np.random.default_rng(5).integers(0, cfg.vocab_size, (steps, 2, 1)).astype(np.int32)
+    ).to(cuda)
+    state = init_decode_state(cfg, 2, steps, start_pos=0, device=cuda)
+    want = []
+    for t in toks:
+        logits, state = decode_step(cfg, params, state, t)
+        want.append(logits)
+    for tiles in (1, 2):
+        cstep = make_compressed_serve_step(cfg, store, ring=2, tiles=tiles)
+        reset_launch_counts()
+        s = init_decode_state(cfg, 2, steps, start_pos=0, device=cuda)
+        for i, t in enumerate(toks):
+            logits, s = cstep(s, t)
+            assert torch.equal(logits.view(torch.int32), want[i].view(torch.int32)), (tiles, i)
+        counts = launch_counts()
+        feeds = [f for k in store.stack_keys for layer in store.feeds(k) for f in layer]
+        assert all(f is not None for f in feeds)
+        assert counts["plane_consumer"] == steps * sum(
+            f.n_launches["plane_consumer"] for f in feeds)
+        assert counts["huffdecode_serial"] == counts["huffdecode_index"] == 0
+
+
+def test_mla_kv_tier_on_card(cuda):
+    """deepseek reduced on the card: the ring with the MLA KV tier is
+    bit-identical to the plain step, and its evicted latent blocks encode
+    on the card to the host's bytes."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import KVCacheStore
+
+    cfg = get_config("deepseek_v2_236b").reduced()
+    params = init_params(cfg, 0, device=cuda)
+    steps, B = 12, 2
+    toks = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (steps, B, 1)).astype(np.int32)
+    ).to(cuda)
+    state = init_decode_state(cfg, B, steps, start_pos=0, device=cuda)
+    want = []
+    for t in toks:
+        logits, state = decode_step(cfg, params, state, t)
+        want.append(logits)
+    zcfg = zipnn.ZipNNConfig(chunk_param_bytes=1 << 15, backend="huffman")
+    kv = KVCacheStore(init_decode_state(cfg, B, steps, start_pos=0, device=cuda),
+                      hot_window=3, block_len=2, config=zcfg)
+    assert kv.keys == ("mla_ckv", "mla_kr")
+    store = CompressedParamStore.from_params(
+        params, zcfg, options=CodecOptions(backend="device"), payload_feed=True)
+    cstep = make_compressed_serve_step(cfg, store, ring=2, tiles=1, kv_store=kv)
+    s = {"pos": torch.tensor(0, dtype=torch.int32, device=cuda)}
+    for i, t in enumerate(toks):
+        logits, s = cstep(s, t)
+        assert torch.equal(logits.view(torch.int32), want[i].view(torch.int32)), i
+    assert kv.n_cold_blocks == (steps - 3) // 2
+    for key in kv.keys:
+        for j in range(cfg.n_layers):
+            for b, ct in enumerate(kv.cold_blocks(key, j)):
+                block = state[key][j][:, 2 * b : 2 * b + 2].contiguous().cpu()
+                assert ct.blob == zipnn.compress_array(block, zcfg, options=HOST).blob
+
+
+def test_256_mib_expert_leaf_launch_counts(cuda):
+    """olmoe's expert leaf, (64, 2048, 1024) bf16, is exactly
+    MAX_BATCH_BYTES and its exponent plane exactly K7's 1,024-chunk cap: it
+    takes one K3 window of its own (the leaf after it another) and one K7
+    launch, and its blob equals the host's."""
+    from repro_torch.core import device_plane
+
+    leaf = _card_bf16((64, 2048, 1024), 7, cuda)
+    assert leaf.numel() * 2 == device_plane.MAX_BATCH_BYTES
+    small = _card_bf16((2048, 64), 8, cuda)
+    reset_launch_counts()
+    manifest = zipnn.compress_pytree({"a": leaf, "b": small}, zipnn.ZipNNConfig(
+        backend="huffman"), options=CodecOptions(backend="device"))
+    counts = launch_counts()
+    assert counts["plane_producer"] == 2
+    ct = manifest["leaves"][0]
+    meta, _ = container.unpack_stream(ct.blob)
+    huff = sum(e.method == codec.Method.HUFF for pe in meta.entries for e in pe)
+    assert huff == 1024 and meta.chunk_bytes == PLANE_CHUNK
+    small_huff = sum(e.method == codec.Method.HUFF for pe in container.unpack_stream(
+        manifest["leaves"][1].blob)[0].entries for e in pe)
+    assert counts["bitpack_encode_chunks"] == 1 + (small_huff > 0)
+    host = zipnn.compress_array(leaf.cpu(), zipnn.ZipNNConfig(backend="huffman"), options=HOST)
+    assert ct.blob == host.blob
