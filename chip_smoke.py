@@ -126,7 +126,29 @@ without printing the final line:
     decode at the expert leaf against its plain version over all 9,600
     chunks, and K2/K3/K7 there (against their plain versions over the first
     1,024 chunks) and at the router;
-16. report: store sizes, build times, tokens/s, file and checkpoint times,
+16. mamba2_130m whole at its published size (24 layers, d_model 768,
+    d_inner 1536, 24 SSM heads of 64, state 128, vocab 50,280, untied
+    head; 335,200,512 B): the store built on the card against the host's
+    encode of layer 0 (its f32 ``A_log`` / ``D`` / ``dt_bias`` blobs
+    included), every leaf of layers 0 and 23 decoded against its param, the
+    ring at ``tiles`` 1 and 4 against the plain step (logits and the final
+    ``ssm_state`` / ``ssm_conv`` bit-identical) with traces
+    ``build/mamba2_ring_trace_t{1,4}.json``, K1/K2/K3/K7 at the 768x3352
+    ``in_proj`` leaf (20 exponent chunks) and K2's fp32 path at ``A_log``;
+17. zamba2_7b whole at its published size (81 Mamba2 layers as 13 groups of
+    6 and a 3-layer tail, the shared attention block; 13,502,316,096 B),
+    served from a ZipNN checkpoint restored on the card: the plain
+    ``greedy_generate`` gives reference tokens; one ``CheckpointManager``
+    base of the params saved on the card (K3 a leaf, K7 as its chunk cap
+    splits each leaf: 31 launches for the 8,149,499,904-byte ``in_proj``
+    stack of 31,088 exponent chunks), its ``mamba_tail`` blobs against the
+    host's save of that subtree (cut to it to bound the host's encode
+    time); ``python -m repro_torch.launch.serve --arch zamba2_7b --ckpt-dir
+    DIR`` (through ``main``) restores on the card (K1's one-shot decode,
+    K2): every restored leaf equals the saved one bit for bit and the
+    tokens equal the plain step's; K1/K2/K3/K7 at the 8.15 GB leaf; about
+    9 GB under ``build/chip_zamba2_ckpt``, removed at the end;
+18. report: store sizes, build times, tokens/s, file and checkpoint times,
     each phase's seconds and peak card memory, the ``kernels`` JSON line,
     and last ``{"ok": true, "device": {...}}``.
 """
@@ -1985,10 +2007,11 @@ def add_launches(total, launches):
 
 def run_rings(dev, cfg, store, params, label, out, seed):
     """The ring at each of TILES against the plain step on B=BATCH
-    requests of PROMPT + STEPS tokens: logits bit-identical, no payload
-    upload or serial K1, at most ``RING x tiles`` slots resident, K1/K2
-    launches equal to the plan; then a profiler trace of 4 ring steps at
-    each."""
+    requests of PROMPT + STEPS tokens: logits bit-identical, every entry
+    of the final decode state (caches, or an SSM model's recurrent state
+    and conv history) bit-identical, no payload upload or serial K1, at
+    most ``RING x tiles`` slots resident, K1/K2 launches equal to the
+    plan; then a profiler trace of 4 ring steps at each."""
     import torch
 
     from repro_torch.core import device_entropy
@@ -2005,7 +2028,8 @@ def run_rings(dev, cfg, store, params, label, out, seed):
     torch.cuda.reset_peak_memory_stats(dev)
     plain_logits: list = []
     t0 = time.perf_counter()
-    plain_tokens, _ = greedy_generate(cfg, params, prompt, STEPS, logits_out=plain_logits)
+    plain_tokens, plain_state = greedy_generate(cfg, params, prompt, STEPS,
+                                                logits_out=plain_logits)
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
     n_steps = PROMPT + STEPS
@@ -2022,7 +2046,8 @@ def run_rings(dev, cfg, store, params, label, out, seed):
         torch.cuda.reset_peak_memory_stats(dev)
         logits: list = []
         t0 = time.perf_counter()
-        tokens, _ = greedy_generate(cfg, None, prompt, STEPS, serve_step=cstep, logits_out=logits)
+        tokens, state = greedy_generate(cfg, None, prompt, STEPS, serve_step=cstep,
+                                        logits_out=logits)
         torch.cuda.synchronize()
         t_ring = time.perf_counter() - t0
         extra = torch.cuda.max_memory_allocated(dev) - base
@@ -2030,6 +2055,11 @@ def run_rings(dev, cfg, store, params, label, out, seed):
         uploads = device_entropy.transfer_stats()["payload_uploads"]
         check_same_run(f"{label} ring tiles={tiles}", plain_logits, plain_tokens, logits,
                        tokens, n_steps, cfg.vocab_size)
+        if sorted(state) != sorted(plain_state) or not all(
+                torch.equal(bits(state[k]), bits(plain_state[k])) for k in plain_state):
+            raise AssertionError(f"{label} ring tiles={tiles}: the final decode state differs "
+                                 "from the plain step's")
+        del state
         for name, n in per_step.items():
             if launches[name] != n * n_steps:
                 raise AssertionError(f"{label} tiles={tiles} {name}: {launches[name]} "
@@ -2043,7 +2073,8 @@ def run_rings(dev, cfg, store, params, label, out, seed):
                               "peak_resident": store.peak_resident,
                               "peak_extra_bytes": extra}
         add_launches(out["launches"], launches)
-        log(f"{label} ring tiles={tiles}: logits bit-identical at all {n_steps} steps, peak "
+        log(f"{label} ring tiles={tiles}: logits bit-identical at all {n_steps} steps and the "
+            f"final {sorted(k for k in plain_state if k != 'pos')} too, peak "
             f"resident {store.peak_resident} (at most {RING * tiles}), payload uploads 0; "
             f"{BATCH * n_steps / t_ring:.2f} tokens/s ({t_ring:.3f} s) against plain "
             f"{BATCH * n_steps / t_plain:.2f} ({t_plain:.3f} s); card bytes at peak over the "
@@ -2314,6 +2345,275 @@ def phase_deepseek(dev, zcfg):
     return out
 
 
+def measure_k2_leaf(dev, x, label, reps=20):
+    """K2 alone at one leaf's exact size, as a ring decode of the leaf
+    launches it (a leaf with no Huffman-coded chunk runs no K1): its planes
+    from K3's plain version, then K2 against its plain version and its
+    bound."""
+    import torch
+
+    from repro_torch.kernels import plane_consumer, plane_consumer_plain, plane_producer_plain
+    from repro_torch.kernels.fused_plane import ELEM_DTYPES
+
+    itemsize = x.element_size()
+    e = x.reshape(-1).view(ELEM_DTYPES[itemsize])
+    n = e.numel()
+    planes, _ = plane_producer_plain(e, itemsize=itemsize, chunk_elems=n)
+    pl = [planes[p].contiguous() for p in range(itemsize)]
+    k2 = lambda: plane_consumer(pl, itemsize=itemsize)  # noqa: E731
+    ms = device_ms(k2, reps)
+    kernel_ms = profiled_ms(k2, r"unplane_kernel", 5)
+    plain_ms = device_ms(lambda: plane_consumer_plain(pl, itemsize=itemsize), 1)
+    if not (torch.equal(k2(), e) and torch.equal(plane_consumer_plain(pl, itemsize=itemsize), e)):
+        raise AssertionError(f"K2 disagrees at the {label} leaf")
+    b, by = bound_ms(2 * itemsize * n, K2_OPS_PER_ELEMENT * n)
+    log(f"K2 at {label} {tuple(x.shape)} ({x.dtype}): kernel {ms:.5f} ms (device time alone "
+        f"{kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}, {2 * itemsize * n} B)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "kernel_ms_profiler": kernel_ms, "bytes": 2 * itemsize * n, "plain_elems": n}
+
+
+def phase_mamba2(dev, zcfg):
+    """mamba2_130m whole at its published size (24 layers, d_model 768,
+    d_inner 1536, 24 SSM heads of 64, state 128, vocab 50,280, untied head;
+    335,200,512 B): the store built on the card against the host's encode
+    of layer 0 (its three f32 ``ssm`` leaves included), every leaf of
+    layers 0 and 23 decoded against its param, the ring at each of TILES
+    against the plain step (logits and the final ``ssm_state`` /
+    ``ssm_conv`` bit-identical), profiler traces, K1/K2/K3/K7 at the
+    768x3352 ``in_proj`` leaf and K2's fp32 path at ``A_log``."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    free_card()
+    cfg = get_config("mamba2_130m")
+    t_start = time.perf_counter()
+    params, n_bytes = served_params(dev, cfg, "mamba2_130m")
+    if n_bytes != 335_200_512:
+        raise AssertionError(f"mamba2_130m holds {n_bytes} B")
+    store, out = build_served_store(
+        dev, zcfg, cfg, params, "mamba2", lambda key, i, path: i == 0,
+        [("layers", 0), ("layers", cfg.n_layers - 1)])
+    leaves = store.manifest("layers", 0)["leaves"]
+    f32 = sum(ct.dtype == "float32" for ct in leaves)
+    if out["host_checked_leaves"] != len(leaves) or f32 != 3:
+        raise AssertionError(f"mamba2 layer 0: {out['host_checked_leaves']} of {len(leaves)} "
+                             f"blobs checked, {f32} f32 leaves")
+    out["plain_bytes_on_card"] = n_bytes
+    run_rings(dev, cfg, store, params, "mamba2", out, SEED + 50)
+    out["kernels"] = {
+        "in_proj": measure_leaf_kernels(
+            dev, leaf_feed(store, "layers", 0, "mamba/in_proj/w"),
+            leaf_of(params, "layers", 0, "mamba/in_proj/w"), "mamba2 in_proj", reps=20),
+        "A_log": {"K2": measure_k2_leaf(dev, leaf_of(params, "layers", 0, "mamba/ssm/A_log"),
+                                        "mamba2 A_log")},
+    }
+    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"mamba2 phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
+    return out
+
+
+ZAMBA_BIG = "params/mamba_groups/mamba/in_proj/w"   # (13, 6, 3584, 14576) bf16, 8.15 GB
+
+
+def checkpoint_entries(directory, step):
+    """A checkpoint's manifest entries by key, and its ``data.bin`` path."""
+    d = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    return {e["key"]: e for e in manifest["entries"]}, os.path.join(d, "data.bin")
+
+
+def read_blob(path, entry):
+    with open(path, "rb") as f:
+        f.seek(entry["offset"])
+        blob = f.read(entry["size"])
+    if len(blob) != entry["size"] or zlib.crc32(blob) != entry["crc"]:
+        raise AssertionError(f"{entry['key']}: short read or CRC mismatch")
+    return blob
+
+
+def phase_zamba2(dev, zcfg):
+    """zamba2_7b whole at its published size (81 Mamba2 layers as 13 groups
+    of 6 plus a 3-layer tail, the shared attention block; 13,502,316,096
+    B), from a ZipNN checkpoint restored on the card: the plain
+    ``greedy_generate`` (B=BATCH, PROMPT + STEPS tokens) gives reference
+    tokens; one ``CheckpointManager`` base of ``{"params": ...}`` is saved
+    on the card (K3 a leaf, K7 as its chunk cap splits each leaf: 31
+    launches for the 8,149,499,904-byte ``in_proj`` stack); the host's save
+    of the ``mamba_tail`` subtree writes the same blobs as the card's save
+    of those leaves (the host check is cut to that subtree, 3 layers at
+    full width, to bound the host's encode time); ``launch.serve.main``
+    restores the checkpoint on the card (K1's one-shot decode a Huffman
+    leaf, K2 a window of same-dtype leaves) and decodes: every restored
+    leaf equals the saved one bit for bit and the tokens equal the plain
+    step's; then K1 (sync decode, index pass, one-shot decode), K2, K3 and
+    K7 at the 8.15 GB leaf against their plain versions and bounds.  The
+    checkpoint directory is removed at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import zipnn
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import greedy_generate
+
+    free_card()
+    cfg = get_config("zamba2_7b")
+    t_start = time.perf_counter()
+    params, n_bytes = served_params(dev, cfg, "zamba2_7b")
+    if n_bytes != 13_502_316_096:
+        raise AssertionError(f"zamba2_7b holds {n_bytes} B")
+    big = params["mamba_groups"]["mamba"]["in_proj"]["w"]
+    if tuple(big.shape) != (13, 6, 3584, 14576) or big.numel() * 2 != 8_149_499_904:
+        raise AssertionError(f"zamba2 in_proj stack {tuple(big.shape)}")
+    out = {"plain_bytes_on_card": n_bytes, "launches": {}}
+
+    # the serving entry point's prompt: its --seed (0) draws it
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_tokens, _ = greedy_generate(cfg, params, prompt, STEPS)
+    torch.cuda.synchronize()
+    out["plain_s"] = time.perf_counter() - t0
+    out["plain_tokens_per_s"] = BATCH * (PROMPT + STEPS) / out["plain_s"]
+    log(f"zamba2 plain greedy_generate on the card: B={BATCH}, {PROMPT} + {STEPS} tokens in "
+        f"{out['plain_s']:.3f} s ({out['plain_tokens_per_s']:.2f} tokens/s); first sequence "
+        f"{plain_tokens[0].tolist()}")
+
+    work = os.path.join(ROOT, "build", "chip_zamba2_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    card_dir, host_dir = os.path.join(work, "card"), os.path.join(work, "host")
+    try:
+        mgr = CheckpointManager(CheckpointConfig(card_dir, zipnn=zcfg, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        mgr.save(0, {"params": params}, blocking=True)
+        torch.cuda.synchronize()
+        out["save_s"] = time.perf_counter() - t0
+        save_launches = launch_counts()
+        out["save_peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del mgr                                     # and the base it holds on the card
+        free_card()
+        entries, data = checkpoint_entries(card_dir, 0)
+        flat = _util.tree_flatten_with_keys({"params": params})
+        if sorted(entries) != sorted(k for k, _ in flat):
+            raise AssertionError("zamba2 checkpoint keys differ from the params'")
+        # the save's plan from its blobs: K3 once a leaf (a leaf over the
+        # batch cap is its own window), K7 as each leaf's chunk cap splits it
+        huff, k7 = {}, {}
+        for key, e in entries.items():
+            blob = read_blob(data, e)
+            huff[key], k7[key] = huff_chunks(blob), k7_launches(blob)
+            del blob
+        save_plan = {"plane_producer": len(entries), "bitpack_encode_chunks": sum(k7.values())}
+        for name, n in save_plan.items():
+            if save_launches[name] != n:
+                raise AssertionError(f"zamba2 save: {name} {save_launches[name]} launches, "
+                                     f"plan {n}")
+        out["save_launches"] = save_plan
+        add_launches(out["launches"], save_launches)
+        disk = os.path.getsize(data)
+        log(f"zamba2 card save of {n_bytes} B in {out['save_s']:.3f} s "
+            f"({n_bytes / 1e6 / out['save_s']:.1f} MB/s), {disk} B data.bin "
+            f"({100 * disk / n_bytes:.3f}%), launches equal the plan {save_plan} (the in_proj "
+            f"stack: {huff[ZAMBA_BIG]} Huffman chunks, {k7[ZAMBA_BIG]} K7 "
+            f"launches); card memory at peak {out['save_peak_card_bytes']} B")
+
+        # the host's save of the tail's leaves writes the card's blobs
+        tail = {"params": {"mamba_tail": _util.tree_map(lambda t: t.cpu(),
+                                                        params["mamba_tail"])}}
+        t0 = time.perf_counter()
+        CheckpointManager(CheckpointConfig(host_dir, zipnn=zcfg, threads=-1,
+                                           device="cpu")).save(0, tail, blocking=True)
+        out["host_tail_save_s"] = time.perf_counter() - t0
+        host_entries, host_data = checkpoint_entries(host_dir, 0)
+        fields = ("kind", "dtype", "shape", "size", "crc", "raw")
+        for key, e in host_entries.items():
+            c = entries[key]
+            if ([c[f] for f in fields] != [e[f] for f in fields]
+                    or read_blob(data, c) != read_blob(host_data, e)):
+                raise AssertionError(f"zamba2 checkpoint {key}: the card's blob differs from the "
+                                     "host's")
+        tail_raw = sum(e["raw"] for e in host_entries.values())
+        log(f"zamba2 mamba_tail ({len(host_entries)} leaves, {tail_raw} B): the card's checkpoint "
+            f"blobs equal the host's save ({out['host_tail_save_s']:.3f} s on the host)")
+        del tail
+
+        # the serving entry point restores on the card and decodes
+        served: dict = {}
+        free_card()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = launch_serve.main(["--arch", "zamba2_7b", "--ckpt-dir", card_dir,
+                                    "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                                    "--gen", str(STEPS)], params_out=served)
+        torch.cuda.synchronize()
+        out["serve_s"] = time.perf_counter() - t0
+        restore_launches = launch_counts()
+        out["serve_peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+        got = _util.tree_flatten_with_keys({"params": served})
+        if [k for k, _ in got] != [k for k, _ in flat]:
+            raise AssertionError("zamba2 restore: keys differ from the saved params'")
+        for (k, a), (_, b) in zip(got, flat):
+            if not (a.device == dev and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(bits(a), bits(b))):
+                raise AssertionError(f"zamba2 restore: {k} differs from the saved leaf")
+        if not torch.equal(tokens, plain_tokens):
+            raise AssertionError("zamba2: launch.serve's tokens differ from the plain step's")
+        del served, got
+        # the restore's plan: K1's one-shot decode a Huffman leaf, K2 a
+        # window of same-dtype leaves in key order
+        sizes: dict = {}
+        for key in sorted(entries):
+            sizes.setdefault(entries[key]["dtype"], []).append(entries[key]["raw"])
+        restore_plan = {"huffdecode_serial": sum(n > 0 for n in huff.values()),
+                        "plane_consumer": sum(k3_windows(g, MAX_BATCH_BYTES)
+                                              for g in sizes.values())}
+        for name, n in restore_plan.items():
+            if restore_launches[name] != n:
+                raise AssertionError(f"zamba2 restore: {name} {restore_launches[name]} "
+                                     f"launches, plan {n}")
+        if restore_launches["huffdecode_chunks"] or restore_launches["huffdecode_index"]:
+            raise AssertionError(f"zamba2 restore: sync K1 launched {restore_launches}")
+        out["restore_launches"] = restore_plan
+        add_launches(out["launches"], restore_launches)
+        log(f"zamba2 launch.serve --ckpt-dir: restore and {BATCH} x {STEPS} greedy tokens in "
+            f"{out['serve_s']:.3f} s; every restored leaf (the {big.numel() * 2}-byte in_proj "
+            f"stack included) equals the saved one bit for bit; tokens equal the plain step's; "
+            f"launches equal the plan {restore_plan}; card memory at peak "
+            f"{out['serve_peak_card_bytes']} B")
+
+        # the kernels at the 8.15 GB leaf
+        e = entries[ZAMBA_BIG]
+        ct = zipnn.CompressedTensor(read_blob(data, e), e["dtype"], tuple(e["shape"]))
+        del params, flat
+        free_card()
+        feed = zipnn.build_array_feed(ct, zcfg, device=dev)
+        del ct
+        out["kernels"] = {"in_proj": measure_leaf_kernels(
+            dev, feed, big, "zamba2 in_proj", plain_prefix=DS_PLAIN_PREFIX, reps=3)}
+        del feed, big
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["peak_card_bytes"] = max(out.get("save_peak_card_bytes", 0),
+                                 out.get("serve_peak_card_bytes", 0),
+                                 torch.cuda.max_memory_allocated(dev))
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"zamba2 phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
+    return out
+
+
 def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     """K1 (sync decode, index pass, one-shot decode), K2, K3 and K7 at one
     stored leaf: ``feed`` its payload feed, ``x`` its param on the card.
@@ -2512,6 +2812,16 @@ def main() -> int:
         idle = [k for k in need if not ph["launches"].get(k)]
         if idle:
             raise AssertionError(f"{label}: kernels of the path never launched: {idle}")
+    # this slice's paths: the SSM family (mamba2_130m whole, served by the
+    # ring) and the hybrid (zamba2_7b whole, from a checkpoint on the card)
+    ssm = {"mamba2": phase_mamba2(dev, zcfg), "zamba2": phase_zamba2(dev, zcfg)}
+    for label, need in (("mamba2", ["plane_producer", "bitpack_encode_chunks",
+                                    "huffdecode_index", "huffdecode_chunks", "plane_consumer"]),
+                        ("zamba2", ["plane_producer", "bitpack_encode_chunks",
+                                    "huffdecode_serial", "plane_consumer"])):
+        idle = [k for k in need if not ssm[label]["launches"].get(k)]
+        if idle:
+            raise AssertionError(f"{label}: kernels of the path never launched: {idle}")
     reset_launch_counts()
 
     def moe_rows(k, counter):
@@ -2520,6 +2830,17 @@ def main() -> int:
                         "expert": ph["kernels"]["expert"][k],
                         "router": ph["kernels"]["router"][k]} for label, ph in moe.items()}
 
+    def ssm_rows(k, counter):
+        """Kernel ``k``'s readings and launches on the SSM and hybrid paths
+        (readings at ``in_proj``, and K2's at mamba2's f32 ``A_log``)."""
+        return {label: dict({leaf: r[k] for leaf, r in ph["kernels"].items() if k in r},
+                            launches=ph["launches"].get(counter, 0))
+                for label, ph in ssm.items()}
+
+    k1_ssm = ssm_rows("K1", "huffdecode_chunks")
+    for label, ph in ssm.items():
+        k1_ssm[label].update(index_pass_launches=ph["launches"].get("huffdecode_index", 0),
+                             one_shot_launches=ph["launches"].get("huffdecode_serial", 0))
     # Every row's ms is device_ms (L2 evicted before each call) and its
     # kernel_ms_profiler the kernel's device time alone.
     no_library = "no single PyTorch call computes it"
@@ -2547,7 +2868,8 @@ def main() -> int:
                          one_shot=dict(gk["K1"]["one_shot"], launches=gl["huffdecode_serial"])),
          "moe": {label: dict(r, index_pass_launches=moe[label]["launches"]["huffdecode_index"],
                              one_shot_launches=moe[label]["launches"]["huffdecode_serial"])
-                 for label, r in moe_rows("K1", "huffdecode_chunks").items()}},
+                 for label, r in moe_rows("K1", "huffdecode_chunks").items()},
+         "ssm": k1_ssm},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
@@ -2558,7 +2880,7 @@ def main() -> int:
          "launches_file": files["launches"]["plane_consumer"],
          "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"],
          "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN),
-         "moe": moe_rows("K2", "plane_consumer")},
+         "moe": moe_rows("K2", "plane_consumer"), "ssm": ssm_rows("K2", "plane_consumer")},
         {"name": "plane_producer", "route": "cuda",
          "source": "src/repro_torch/csrc/plane.cu",
          "replaces": "src/repro/kernels/fused_plane.py:52",
@@ -2570,7 +2892,7 @@ def main() -> int:
          "launches_file": files["launches"]["plane_producer"],
          "launches_checkpoint_save": ckpt["save_launches"]["plane_producer"],
          "granite": dict(gk["K3"], launches=gl["plane_producer"], shape=W_IN),
-         "moe": moe_rows("K3", "plane_producer")},
+         "moe": moe_rows("K3", "plane_producer"), "ssm": ssm_rows("K3", "plane_producer")},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",
@@ -2581,7 +2903,8 @@ def main() -> int:
          "launches_file": files["launches"]["bitpack_encode_chunks"],
          "launches_checkpoint_save": ckpt["save_launches"]["bitpack_encode_chunks"],
          "granite": dict(gk["K7"], launches=gl["bitpack_encode_chunks"], shape=W_IN),
-         "moe": moe_rows("K7", "bitpack_encode_chunks")},
+         "moe": moe_rows("K7", "bitpack_encode_chunks"),
+         "ssm": ssm_rows("K7", "bitpack_encode_chunks")},
     ]
     # The ops kernels: launches are those of the ops path over the 108
     # leaves; times from measure_ops (K4/K11 list both widths, K5 both
@@ -2618,7 +2941,7 @@ def main() -> int:
         if len(replaces) > 1:
             entry["replaces_also"] = [f"src/repro/kernels/{r}" for r in replaces[1:]]
         kernels.append(entry)
-    for label, ph in moe.items():
+    for label, ph in list(moe.items()) + list(ssm.items()):
         log(f"{label} summary: " + json.dumps({k: v for k, v in ph.items()
                                                if k not in ("kernels", "trace")}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

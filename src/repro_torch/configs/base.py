@@ -99,6 +99,15 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """May run the long_500k cell (sub-quadratic context handling)."""
+        return self.family in ("ssm", "hybrid") or self.window > 0
+
+    @property
     def has_decode(self) -> bool:
         return not self.encoder_only
 

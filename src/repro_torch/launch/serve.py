@@ -3,6 +3,7 @@ batch requests, greedy-decode.
 
     python -m repro_torch.launch.serve --arch granite_20b --reduced \
         --ckpt-dir DIR --batch 4 --prompt-len 16 --gen 32 [--device cpu]
+    python -m repro_torch.launch.serve --arch zamba2_7b --ckpt-dir DIR
 
 The checkpoint is one the port's (or the reference's: the bytes are the
 same) ``CheckpointManager`` wrote, with the model's params under
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -28,8 +29,11 @@ from ..models.model import init_params
 from ..serve.step import greedy_generate
 
 
-def main(argv: Optional[List[str]] = None) -> torch.Tensor:
-    """Parse ``argv``, restore or draw the params and generate; returns the generated tokens, (batch, gen)."""
+def main(argv: Optional[List[str]] = None, *,
+         params_out: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Parse ``argv``, restore or draw the params and generate; returns the
+    generated tokens, (batch, gen).  When ``params_out`` is a dict, the
+    params served are put in it (the restored tree, to check a restore)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", type=str, default="repro_gpt_100m")
     ap.add_argument("--reduced", action="store_true")
@@ -56,6 +60,8 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     else:
         params = init_params(cfg, args.seed, device=dev)
         print("[serve] random init (no --ckpt-dir)")
+    if params_out is not None:
+        params_out.update(params)
 
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(

@@ -1,4 +1,5 @@
-"""Transformer block composition for decode (dense and MoE families).
+"""Block composition for decode: transformer (dense and MoE families)
+and Mamba2 (SSM and hybrid families).
 
 Blocks are plain functions over nested-dict params, so the serving ring
 can hand each call a freshly decoded layer.
@@ -8,9 +9,10 @@ from __future__ import annotations
 
 import torch
 
-from . import attention, layers, moe
+from . import attention, layers, moe, ssm
 
-__all__ = ["norm_apply", "mlp_apply", "dense_block_decode", "moe_block_decode"]
+__all__ = ["norm_apply", "mlp_apply", "dense_block_decode", "moe_block_decode",
+           "mamba_block_decode"]
 
 
 def norm_apply(cfg, p, x):
@@ -52,3 +54,12 @@ def moe_block_decode(p, x, caches, pos, cfg):
     h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
     x = xs.to(x.dtype) + moe.moe_apply(p["moe"], h, cfg)
     return x, new_caches
+
+
+def mamba_block_decode(p, x, caches, pos, cfg):
+    """Norm, then the Mamba2 recurrence; ``caches`` is (ssm state, conv
+    history).  The output rounds as the HLO's ``add_convert_fusion``:
+    ``bf16(x + y)``, ``y`` the bf16 ``out_proj``."""
+    h = norm_apply(cfg, p["norm"], x)
+    y, state, conv = ssm.mamba2_decode(p["mamba"], h, caches[0], caches[1], cfg)
+    return x + y, (state, conv)

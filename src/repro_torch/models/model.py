@@ -1,11 +1,16 @@
-"""Decode state and the one-token decode step for the dense and MoE
-families.
+"""Decode state and the one-token decode step for the dense, MoE, SSM and
+hybrid families.
 
 A port of ``repro.models.model``'s ``init_decode_state``, ``decode_step``
 and ``_slot_write`` as plain functions of ``(cfg, params, ...)``: the
 layer loop is a Python loop over the stacked params' leading axis (the
 reference scans it) — ``dense_layers`` then ``moe_layers`` for the MoE
 family — and the cache slot write happens once after it, for all layers.
+The SSM family's layers return their new recurrent state and conv
+history, which stack into the new state.  The hybrid family runs each of
+its ``mamba_groups`` and then the one ``shared_attn`` block with that
+group's KV cache, then the ``mamba_tail``; the KV slot write happens once
+after the groups, as in the reference's scanned step.
 """
 
 from __future__ import annotations
@@ -15,12 +20,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import _util
-from . import attention, blocks, layers
+from . import attention, blocks, layers, ssm
 
 __all__ = [
     "block_fn",
     "layer_plan",
     "cache_keys",
+    "hybrid_groups",
+    "write_caches",
     "param_shapes",
     "param_dtypes",
     "init_params",
@@ -36,39 +43,62 @@ def block_fn(kind: str) -> Callable:
     """The block function of a layer kind, shared by every layer of a
     stack (looked up at each call, so a patched ``blocks`` function is
     the one that runs)."""
-    return {"dense": blocks.dense_block_decode, "moe": blocks.moe_block_decode}[kind]
+    return {"dense": blocks.dense_block_decode, "moe": blocks.moe_block_decode,
+            "ssm": blocks.mamba_block_decode}[kind]
 
 
 def _check_family(cfg) -> None:
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only: no decode state")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet"
         )
 
 
 def layer_plan(cfg) -> List[Tuple[str, int, str]]:
-    """[(stack_key, layer_index, block_kind)] in decode order."""
+    """[(stack_key, layer_index, block_kind)] in decode order, for the
+    families whose layers are one stack each after another (the hybrid
+    family's shared block repeats across groups: it has no such plan)."""
     _check_family(cfg)
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid family's shared attention block repeats "
+            "across groups, so it has no per-layer plan"
+        )
     if cfg.family == "moe":
         fk = cfg.first_k_dense
         return [("dense_layers", i, "dense") for i in range(fk)] + [
             ("moe_layers", i, "moe") for i in range(cfg.n_layers - fk)
         ]
-    return [("layers", i, "dense") for i in range(cfg.n_layers)]
+    kind = "ssm" if cfg.family == "ssm" else "dense"
+    return [("layers", i, kind) for i in range(cfg.n_layers)]
 
 
 def cache_keys(cfg) -> Tuple[str, str]:
-    """The decode state's two stacked caches, in block-call order."""
+    """The decode state's two stacked per-layer caches, in block-call
+    order: the SSM family's recurrent state and conv history, else the
+    attention caches."""
+    if cfg.family == "ssm":
+        return ("ssm_state", "ssm_conv")
     return ("mla_ckv", "mla_kr") if cfg.mla else ("kv_k", "kv_v")
+
+
+def hybrid_groups(cfg) -> Tuple[int, int, int]:
+    """(groups, Mamba2 layers a group, tail layers) of the hybrid family."""
+    every = cfg.shared_attn_every
+    n_groups = cfg.n_layers // every
+    return n_groups, every, cfg.n_layers - n_groups * every
 
 
 def param_shapes(cfg) -> Dict[str, Any]:
     """The param tree as shapes, in the reference's layout (stacked
     layers on the leading axis, ``{"w": (d_in, d_out)}``): ``layers`` for
-    the dense family, ``dense_layers`` (``first_k_dense`` of them, MLP
-    width ``dense_d_ff``) and ``moe_layers`` for the MoE family."""
+    the dense and SSM families, ``dense_layers`` (``first_k_dense`` of
+    them, MLP width ``dense_d_ff``) and ``moe_layers`` for the MoE family,
+    ``mamba_groups`` (leading axes: group, layer of the group),
+    ``shared_attn`` (one dense block) and ``mamba_tail`` (when
+    ``n_layers`` is not a whole number of groups) for the hybrid family."""
     _check_family(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -115,8 +145,17 @@ def param_shapes(cfg) -> Dict[str, Any]:
                     "w_out": lead + (ff, d), "b_out": lead + (d,)}
         return swiglu(lead, ff)
 
-    def block(n, ff=None):
-        lead = (n,)
+    def mamba(lead):
+        d_inner, H, N, conv_dim = ssm._dims(cfg)
+        return {"norm": norm(lead), "mamba": {
+            "in_proj": dense(lead, d, 2 * d_inner + 2 * N + H),
+            "conv": {"w": lead + (cfg.ssm_conv, conv_dim), "b": lead + (conv_dim,)},
+            "ssm": {"A_log": lead + (H,), "D": lead + (H,), "dt_bias": lead + (H,)},
+            "norm": {"g": lead + (d_inner,)},
+            "out_proj": dense(lead, d_inner, d),
+        }}
+
+    def block(lead, ff=None):
         p = {"attn_norm": norm(lead), "attn": attn(lead), "mlp_norm": norm(lead)}
         if ff is not None:
             p["mlp"] = mlp(lead, ff)
@@ -134,10 +173,18 @@ def param_shapes(cfg) -> Dict[str, Any]:
     if cfg.family == "moe":
         fk = cfg.first_k_dense
         if fk:
-            shapes["dense_layers"] = block(fk, cfg.dense_d_ff)
-        shapes["moe_layers"] = block(cfg.n_layers - fk)
+            shapes["dense_layers"] = block((fk,), cfg.dense_d_ff)
+        shapes["moe_layers"] = block((cfg.n_layers - fk,))
+    elif cfg.family == "ssm":
+        shapes["layers"] = mamba((cfg.n_layers,))
+    elif cfg.family == "hybrid":
+        n_groups, every, tail = hybrid_groups(cfg)
+        shapes["mamba_groups"] = mamba((n_groups, every))
+        shapes["shared_attn"] = block((), cfg.d_ff)
+        if tail:
+            shapes["mamba_tail"] = mamba((tail,))
     else:
-        shapes["layers"] = block(cfg.n_layers, cfg.d_ff)
+        shapes["layers"] = block((cfg.n_layers,), cfg.d_ff)
     shapes["final_norm"] = norm(())
     if cfg.pos_embedding == "learned":
         shapes["pos"] = {"table": (cfg.max_position, d)}
@@ -148,13 +195,15 @@ def param_shapes(cfg) -> Dict[str, Any]:
 
 def param_dtypes(cfg) -> Dict[str, Any]:
     """:func:`param_shapes`' tree with each leaf's dtype: ``cfg.dtype``,
-    but f32 for the MoE routers, as the reference's ``init_moe`` makes
-    them."""
+    but f32 for the MoE routers and the Mamba2 ``ssm`` leaves (``A_log``,
+    ``D``, ``dt_bias``), as the reference's ``init_moe`` and
+    ``init_mamba2`` make them."""
 
     def walk(node, path):
         if isinstance(node, dict):               # shape tuples are the leaves
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        return torch.float32 if path[-2:] == ("router", "w") else cfg.dtype
+        f32 = path[-2:] == ("router", "w") or path[-2:-1] == ("ssm",)
+        return torch.float32 if f32 else cfg.dtype
 
     return walk(param_shapes(cfg), ())
 
@@ -162,7 +211,7 @@ def param_dtypes(cfg) -> Dict[str, Any]:
 def init_params(cfg, seed: int = 0, *, device: Any = "cuda") -> Dict[str, Any]:
     """Random params in :func:`param_shapes`' tree: every leaf
     ``standard_normal * 0.02`` in its :func:`param_dtypes` dtype (bf16;
-    the MoE routers f32), drawn on ``device`` by a generator seeded with
+    the MoE routers and the Mamba2 ``ssm`` leaves f32), drawn on ``device`` by a generator seeded with
     ``seed``, leaf by leaf in sorted-key order.  For serving without a
     checkpoint; the draw differs from the reference's ``Model.init``."""
     dev = _util.resolve_device(device)
@@ -197,7 +246,20 @@ def init_decode_state(
     L = cache_len(cfg, seq_len)
     sp = seq_len if start_pos is None else start_pos
     state = {"pos": torch.tensor(sp, dtype=torch.int32, device=dev)}
-    if cfg.mla:
+    if cfg.family == "ssm":
+        sc = ssm.init_ssm_cache(cfg, batch, cfg.n_layers, dev)
+        state.update({"ssm_state": sc.state, "ssm_conv": sc.conv})
+    elif cfg.family == "hybrid":
+        n_groups, every, tail = hybrid_groups(cfg)
+        sc = ssm.init_ssm_cache(cfg, batch, n_groups * every, dev)
+        state.update({"ssm_state": sc.state.reshape(n_groups, every, *sc.state.shape[1:]),
+                      "ssm_conv": sc.conv.reshape(n_groups, every, *sc.conv.shape[1:])})
+        if tail:
+            tc = ssm.init_ssm_cache(cfg, batch, tail, dev)
+            state.update({"ssm_state_tail": tc.state, "ssm_conv_tail": tc.conv})
+        kv = attention.init_kv_cache(cfg, batch, L, n_groups, dev)
+        state.update({"kv_k": kv.k, "kv_v": kv.v})
+    elif cfg.mla:
         c = attention.init_mla_cache(cfg, batch, L, cfg.n_layers, dev)
         state.update({"mla_ckv": c["c_kv"], "mla_kr": c["k_rope"]})
     else:
@@ -227,12 +289,13 @@ def decode_step(
     cfg, params, state: Dict[str, Any], tokens: torch.Tensor
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence. tokens: (B, 1) int32 → f32 logits."""
+    if cfg.family == "hybrid":
+        return _hybrid_decode_step(cfg, params, state, tokens)
     plan = layer_plan(cfg)
     pos = state["pos"]
     x = decode_front(cfg, params, tokens, pos)
     k0, k1 = cache_keys(cfg)
     c0, c1 = state[k0], state[k1]
-    slot = pos % c0.shape[2]
     outs0, outs1 = [], []
     for j, (key, i, kind) in enumerate(plan):
         lp = _util.tree_map(lambda a, i=i: a[i], params[key])
@@ -240,8 +303,62 @@ def decode_step(
         outs0.append(u0)
         outs1.append(u1)
     new_state = dict(state)
-    new_state[k0] = _slot_write(c0, torch.stack(outs0), slot)
-    new_state[k1] = _slot_write(c1, torch.stack(outs1), slot)
+    new_state.update(write_caches(cfg, state, torch.stack(outs0), torch.stack(outs1)))
+    new_state["pos"] = pos + 1
+    return decode_tail(cfg, params, x), new_state
+
+
+def write_caches(cfg, state: Dict[str, Any], n0: torch.Tensor,
+                 n1: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The new stacked caches from every layer's outputs: an SSM layer's
+    whole new state and conv history, or the new attention entries written
+    at slot ``pos % cache length`` (the single write after the loop)."""
+    k0, k1 = cache_keys(cfg)
+    if cfg.family == "ssm":
+        return {k0: n0, k1: n1}
+    slot = state["pos"] % state[k0].shape[2]
+    return {k0: _slot_write(state[k0], n0, slot), k1: _slot_write(state[k1], n1, slot)}
+
+
+def _mamba_stack(cfg, stack, x, states, convs, pos):
+    """The Mamba2 layers of one stack in order: (x, new states, new convs)."""
+    outs_s, outs_c = [], []
+    for i in range(states.shape[0]):
+        lp = _util.tree_map(lambda a, i=i: a[i], stack)
+        x, (st, cv) = blocks.mamba_block_decode(lp, x, (states[i], convs[i]), pos, cfg)
+        outs_s.append(st)
+        outs_c.append(cv)
+    return x, torch.stack(outs_s), torch.stack(outs_c)
+
+
+def _hybrid_decode_step(cfg, params, state, tokens):
+    """The hybrid step (the reference's scanned form): each group's Mamba2
+    layers, then the shared attention block over that group's KV cache;
+    one slot write for all groups; then the tail's Mamba2 layers."""
+    pos = state["pos"]
+    x = decode_front(cfg, params, tokens, pos)
+    shared = params["shared_attn"]
+    kv_k, kv_v = state["kv_k"], state["kv_v"]
+    ns, nc, nk, nv = [], [], [], []
+    for g in range(state["ssm_state"].shape[0]):
+        group = _util.tree_map(lambda a, g=g: a[g], params["mamba_groups"])
+        x, st, cv = _mamba_stack(cfg, group, x, state["ssm_state"][g], state["ssm_conv"][g], pos)
+        x, (kn, vn) = blocks.dense_block_decode(shared, x, (kv_k[g], kv_v[g]), pos, cfg)
+        ns.append(st)
+        nc.append(cv)
+        nk.append(kn)
+        nv.append(vn)
+    slot = pos % kv_k.shape[2]
+    new_state = dict(state)
+    new_state.update({
+        "ssm_state": torch.stack(ns), "ssm_conv": torch.stack(nc),
+        "kv_k": _slot_write(kv_k, torch.stack(nk), slot),
+        "kv_v": _slot_write(kv_v, torch.stack(nv), slot),
+    })
+    if "mamba_tail" in params:
+        x, st, cv = _mamba_stack(cfg, params["mamba_tail"], x, state["ssm_state_tail"],
+                                 state["ssm_conv_tail"], pos)
+        new_state.update({"ssm_state_tail": st, "ssm_conv_tail": cv})
     new_state["pos"] = pos + 1
     return decode_tail(cfg, params, x), new_state
 

@@ -39,7 +39,10 @@ __all__ = ["DEFAULT_STACK_KEYS", "CompressedParamStore"]
 PyTree = Any
 
 # Stacked-layer top-level keys (leading axis = layer), the reference's:
-# the dense family's one stack and the MoE family's two.
+# the dense and SSM families' one stack and the MoE family's two.  A
+# hybrid model's stacks (``mamba_groups``, ``mamba_tail``) and its
+# ``shared_attn`` are not among them: they stay in ``static``, as in the
+# reference.
 DEFAULT_STACK_KEYS: Tuple[str, ...] = ("layers", "dense_layers", "moe_layers")
 
 

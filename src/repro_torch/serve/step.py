@@ -20,7 +20,7 @@ import torch
 
 from .. import _util
 from ..models.model import (
-    block_fn, cache_keys, decode_front, decode_step, decode_tail, layer_plan, _slot_write,
+    block_fn, cache_keys, decode_front, decode_step, decode_tail, layer_plan, write_caches,
 )
 
 __all__ = [
@@ -42,10 +42,10 @@ def make_serve_step(cfg) -> Callable:
 
 def _check_served(cfg) -> None:
     """The reference's rejection (no decode path), then the port's: the
-    families not ported yet (ssm, hybrid, vlm, audio)."""
+    family not ported yet (vlm)."""
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} has no decode path")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to the serving steps yet"
         )
@@ -61,7 +61,14 @@ def make_kv_tiered_serve_step(cfg, params, kv_store) -> Callable:
     untiered ones), and the new entries go through the same masked write,
     so the logits are bit-identical to :func:`~repro_torch.models.
     decode_step` over the untiered cache.
+
+    ssm / hybrid models have no cache-length axis and are rejected, as the
+    reference rejects them.
     """
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} has no attention-cache length axis to tier"
+        )
     _check_served(cfg)
     if kv_store.n_layers != cfg.n_layers:
         raise ValueError(
@@ -110,6 +117,12 @@ def make_compressed_serve_step(
     layer attends over the store's caches put back together, and the slot
     write after the loop becomes ``kv_store.append``.
 
+    The SSM family runs the same ring: each layer takes its recurrent state
+    and conv history from the state and returns new ones, which stack into
+    the new state.  As in the reference, hybrid (mamba-group) models are
+    rejected (their shared attention params repeat across groups), and an
+    SSM state has no cache-length axis for the KV tier.
+
     On a CUDA store, decodes run on a side stream: the next jobs' K1/K2
     launches are enqueued there before a layer's compute is enqueued on
     the current stream, an event orders each layer's (or tile's) compute
@@ -124,11 +137,18 @@ def make_compressed_serve_step(
     ``prefetch=False`` decodes each job on demand.  Logits are
     bit-identical to :func:`repro_torch.models.decode_step`.
     """
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "hybrid (mamba-group) models are not supported by the "
+            "compressed serving ring: shared_attn params repeat per group"
+        )
     _check_served(cfg)
     if ring < 1:
         raise ValueError(f"ring must be >= 1, got {ring}")
     if tiles < 1:
         raise ValueError(f"tiles must be >= 1, got {tiles}")
+    if kv_store is not None and cfg.family == "ssm":
+        raise NotImplementedError(f"{cfg.name}: ssm state has no cache-length axis to tier")
     plan = layer_plan(cfg)
     for key in dict.fromkeys(k for k, _, _ in plan):
         want = sum(1 for k, _, _ in plan if k == key)
@@ -225,7 +245,6 @@ def make_compressed_serve_step(
         pump()
         if kv_store is None:
             c0, c1 = state[k0], state[k1]
-            slot = pos % c0.shape[2]
         outs0, outs1 = [], []
         for j, (key, i, kind) in enumerate(plan):
             lp = layer_params(j)
@@ -236,9 +255,8 @@ def make_compressed_serve_step(
             outs1.append(u1)
         new_state = dict(state)
         n0, n1 = torch.stack(outs0), torch.stack(outs1)
-        if kv_store is None:        # the single slot write, as decode_step
-            new_state[k0] = _slot_write(c0, n0, slot)
-            new_state[k1] = _slot_write(c1, n1, slot)
+        if kv_store is None:        # the single cache write, as decode_step
+            new_state.update(write_caches(cfg, state, n0, n1))
         else:
             kv_store.append(n0, n1)
         new_state["pos"] = pos + 1

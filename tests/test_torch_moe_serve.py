@@ -1,7 +1,7 @@
 """The serving paths of the MoE family at ``reduced()`` size: the store's
 stack keys against the reference's, the compressed ring and the MLA KV
-tier against the port's own plain step, the serving entry point, and the
-families still to port.
+tier against the port's own plain step, the serving entry point, the
+family still to port and the rejections the port keeps from the reference.
 
 * Store: ``CompressedParamStore.from_params`` on the same seeded params
   in both packages gives the same stack keys, the same static keys,
@@ -233,17 +233,32 @@ def _port_config(ref_name):
     ("mamba2_130m", "ssm"), ("zamba2_7b", "hybrid"), ("qwen2_vl_2b", "vlm"),
 ])
 def test_unported_families_raise(ref_name, family):
+    """vlm is not ported: every entry point raises.  ssm and hybrid decode
+    in the port; what they still raise is what the reference raises: the
+    KV tier for both, and the compressed ring for hybrid (its shared
+    attention repeats across groups)."""
     cfg = _port_config(ref_name)
     assert cfg.family == family
     olmoe = get_config("olmoe_1b_7b").reduced()
     store = CompressedParamStore.from_params(init_params(olmoe, 0, device="cpu"), HUFF,
                                              device="cpu")
     kv = KVCacheStore(init_decode_state(olmoe, 2, 4, start_pos=0, device="cpu"))
-    for call in (lambda: param_shapes(cfg),
-                 lambda: init_decode_state(cfg, 2, 4, device="cpu"),
-                 lambda: make_compressed_serve_step(cfg, store),
-                 lambda: make_kv_tiered_serve_step(cfg, {}, kv)):
-        with pytest.raises(NotImplementedError, match=family):
+    if family == "vlm":
+        calls = [(lambda: param_shapes(cfg), family),
+                 (lambda: init_decode_state(cfg, 2, 4, device="cpu"), family),
+                 (lambda: make_compressed_serve_step(cfg, store), family),
+                 (lambda: make_kv_tiered_serve_step(cfg, {}, kv), family)]
+    else:
+        assert param_shapes(cfg) and "ssm_state" in init_decode_state(cfg, 2, 4, device="cpu")
+        calls = [(lambda: make_kv_tiered_serve_step(cfg, {}, kv), "attention-cache length axis")]
+        if family == "hybrid":
+            calls.append((lambda: make_compressed_serve_step(cfg, store),
+                          "shared_attn params repeat per group"))
+        else:
+            calls.append((lambda: make_compressed_serve_step(cfg, store, kv_store=kv),
+                          "ssm state has no cache-length axis"))
+    for call, match in calls:
+        with pytest.raises(NotImplementedError, match=match):
             call()
 
 
