@@ -11,9 +11,10 @@ without printing the final line:
 2. build: ``nvcc`` of every kernel source (one process each, in parallel);
 3. kernels against their plain PyTorch versions on the card, bit-exact:
    K1 (Huffman decode) on a 768x768 bf16 leaf at 8 KiB chunks in its three
-   launch forms (the sync decode from a feed's sync index, the serial
-   decode, the index pass), plus a corrupted payload that must raise at a
-   one-shot decode and at a feed's build; K2 (plane consumer), all four
+   launch forms (the sync decode from a feed's sync index; the one-shot
+   decode and the index pass, both K1's self-synchronising kernel), and
+   against the chain baseline (one thread a chunk), plus a corrupted
+   payload that must raise at a one-shot decode and at a feed's build; K2 (plane consumer), all four
    variants, at a 768x3072 leaf's size; K3 (plane producer), all four
    variants with their histograms, at the same size; K7 (Huffman
    bit-pack) on the exponent and mantissa planes of a 3072x768 bf16 leaf
@@ -37,7 +38,7 @@ without printing the final line:
    counts equal to the layer plan's (the sync decode only; the index pass
    once per leaf at build), no payload upload after the store build, at
    most ``ring`` decoded layers resident.  Then the sync decode on all 108
-   leaves against its plain version and the serial kernel, and one
+   leaves against its plain version and the one-shot kernel, and one
    ``torch.profiler`` session over a few ring steps: each step's decode and
    compute device time and the card's idle share;
 6. delta at full width: the 12 layers' stacks after one simulated
@@ -65,8 +66,9 @@ without printing the final line:
 10. measurements, every kernel timed one way: CUDA events around each
     launch with L2 evicted before it (``device_ms``) and the device time
     alone from ``torch.profiler`` (``profiled_ms``), for K1 (the sync
-    decode and the index pass in turns, the one-shot serial decode, and the
-    sync decode at 256, 512 and 1,024 symbols a sub-stream), K2, K3 (at the
+    decode at 256, 512 and 1,024 symbols a sub-stream; the index pass and
+    the one-shot decode beside the chain baseline in turns, and at 512,
+    544, 1,024 and 2,048-bit segments), K2, K3 (at the
     leaf and at a layer's batch as the store build launches it) and K7 at
     the main path's shapes and the ops kernels at the 3072x768 leaf, beside
     their plain versions and ``torch.bitwise_xor`` (K5) and
@@ -103,8 +105,8 @@ without printing the final line:
     host's encode of it, K3/K7 at eviction and K1's one-shot decode and K2
     in the reassembly equal to the block plan); then K1 (sync decode, index
     pass, one-shot decode), K2, K3 and K7 at the 6144x24576 ``w_in`` leaf
-    against their plain versions (K1's serial forms against the sync
-    decode: their plain version takes a step a symbol) and their bounds;
+    against their plain versions and their bounds (K1's index pass and
+    one-shot decode beside the chain baseline);
 14. olmoe_1b_7b whole at its published size (16 layers, d_model 2048, 16
     heads of 128, 64 experts of 2048x1024, top-8, vocab 50,304, routers
     f32; 13,842,386,944 B): the same store checks (layer 0's 10 blobs
@@ -190,10 +192,11 @@ XOR_OPS_PER_BYTE = 1
 HIST_OPS_PER_BYTE = 4
 # The ops kernels' demangled names (K11 is K2's unplane_kernel)
 OPS_KERNELS = r"::group_(bf16|fp32)\(|unplane_kernel|xor_kernel|hist_kernel|bitpack_kernel"
-# The kernels the file and checkpoint paths run: K1's one-shot (serial)
-# decode, K2, K3 and K7
+# The kernels the file and checkpoint paths run: K1's one-shot decode (the
+# self-synchronising kernel), K2, K3 and K7; and the chain baseline K1 kept
+# for the measurements, which no path may launch
 FILE_CKPT_KERNELS = ("huffdecode_serial", "plane_consumer", "plane_producer",
-                     "bitpack_encode_chunks")
+                     "bitpack_encode_chunks", "huffdecode_chain")
 ADAMW_BETAS = (0.9, 0.95)        # the reference's AdamWConfig b1, b2
 K8_CHUNK = 1 << 13               # the reference's ops.huffman_encode_chunks default
 L2_SCRUB_BYTES = 128 << 20       # read between timed launches: over twice the 50 MB L2
@@ -316,15 +319,16 @@ def phase_build():
 
 
 def phase_k1(dev):
-    """K1's three launch forms vs their plain versions on a real leaf (the
-    index pass, the sync decode, the serial decode); a corrupted payload
-    must raise, at a one-shot decode and at a feed's build."""
+    """K1's three launch forms vs their plain versions and the chain
+    baseline on a real leaf (the index pass and the one-shot decode, both
+    the self-synchronising kernel, and the sync decode); a corrupted
+    payload must raise, at a one-shot decode and at a feed's build."""
     import torch
 
     from repro_torch.core import codec, container, device_entropy, zipnn
     from repro_torch.kernels import (
-        huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index, huffdecode_index_plain,
-        huffdecode_serial,
+        huffdecode_chain, huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index,
+        huffdecode_index_plain, huffdecode_serial,
     )
 
     rng = np.random.default_rng(SEED + 1)
@@ -345,7 +349,7 @@ def phase_k1(dev):
         raise AssertionError("K1 check leaf has no HUFF chunks")
     n_out = args.pop("out_bytes")
     sync, sync_off = args.pop("sync"), args.pop("sync_off")
-    outs = [torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(6)]
+    outs = [torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(7)]
     cur = [
         huffdecode_chunks(**args, out=outs[0], sync=sync, sync_off=sync_off),
         huffdecode_chunks_plain(**args, out=outs[1], sync=sync, sync_off=sync_off),
@@ -354,19 +358,23 @@ def phase_k1(dev):
     ]
     cur_i, sync_i = huffdecode_index(**args, out=outs[4], sync_off=sync_off)
     cur_ip, sync_ip = huffdecode_index_plain(**args, out=outs[5], sync_off=sync_off)
+    cur_c, sync_c = huffdecode_chain(**args, out=outs[6], sync_off=sync_off)
+    cur_n, sync_n = huffdecode_index(**args, out=None, sync_off=sync_off)   # no symbols
     torch.cuda.synchronize()
     if not all(torch.equal(outs[0], o) for o in outs[1:]) or not all(
-            torch.equal(cur[0], c) for c in cur[1:] + [cur_i, cur_ip]):
-        raise AssertionError("K1's launch forms and their plain versions disagree")
-    if not torch.equal(sync_i, sync) or not torch.equal(sync_ip, sync):
-        raise AssertionError("K1's index pass and its plain version disagree on the index")
+            torch.equal(cur[0], c) for c in cur[1:] + [cur_i, cur_ip, cur_c, cur_n]):
+        raise AssertionError("K1's launch forms, their plain versions and the chain disagree")
+    if not all(torch.equal(x, sync) for x in (sync_i, sync_ip, sync_c, sync_n)):
+        raise AssertionError("K1's index pass, its plain version and the chain disagree on "
+                             "the index")
     err = max(max_abs_diff(outs[0], o) for o in outs[1:])
     back = zipnn.decompress_array(ct, cfg, device_resident=True, device=dev)
     if not torch.equal(back.cpu().view(torch.int16), leaf.view(torch.int16)):
         raise AssertionError("K1+K2 decode of the check leaf is not bit-exact")
     log(f"K1 vs plain: {int(args['counts'].numel())} chunks of {meta.chunk_bytes} symbols, "
-        f"{sync.numel()} sync points; sync decode, serial decode and index pass equal their "
-        f"plain versions (symbols, cursors, index)")
+        f"{sync.numel()} sync points; the sync decode, the one-shot decode and the index pass "
+        f"(with and without symbols) equal their plain versions and the chain baseline "
+        f"(symbols, cursors, index)")
 
     # Corruption: truncate one HUFF payload and re-seal its CRC, so only
     # the kernel's cursor check can catch it.
@@ -699,9 +707,12 @@ def phase_main(dev, cfg, zcfg):
         huff_leaves += sum(has_huff(b) for b in want)
     if build_uploads["symbol_uploads"]:
         raise AssertionError(f"the device build uploaded HUFF symbols: {build_uploads}")
-    # K1's index pass is each feed's warmup
+    # K1's index pass (the self-synchronising kernel) once a feed
     build_plan = {"plane_producer": cfg.n_layers, "bitpack_encode_chunks": huff_leaves,
                   "huffdecode_index": huff_leaves}
+    if build_launches["huffdecode_serial"] or build_launches["huffdecode_chain"]:
+        raise AssertionError(f"the store build ran a K1 form other than the index pass: "
+                             f"{build_launches}")
     for name, n in build_plan.items():
         if build_launches[name] == 0 or build_launches[name] != n:
             raise AssertionError(
@@ -787,8 +798,8 @@ def phase_main(dev, cfg, zcfg):
             raise AssertionError(
                 f"{name}: {launches[name]} launches, layer plan predicts {n * n_steps}"
             )
-    if launches["huffdecode_serial"] or launches["huffdecode_index"]:
-        raise AssertionError(f"the ring ran a serial K1: {launches}")
+    if launches["huffdecode_serial"] or launches["huffdecode_index"] or launches["huffdecode_chain"]:
+        raise AssertionError(f"the ring ran a K1 form other than the sync decode: {launches}")
     if uploads["payload_uploads"]:
         raise AssertionError(f"ring uploaded payloads after warmup: {uploads}")
     if store.peak_resident > RING:
@@ -805,10 +816,13 @@ def phase_main(dev, cfg, zcfg):
 
 def check_k1_leaves(store, dev):
     """The sync decode on every leaf of the main path against its plain
-    version and the serial kernel: symbols and final cursors."""
+    version and the one-shot (self-synchronising) kernel: symbols and final
+    cursors; and the feed's index against the index form run again."""
     import torch
 
-    from repro_torch.kernels import huffdecode_chunks, huffdecode_chunks_plain, huffdecode_serial
+    from repro_torch.kernels import (
+        huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index, huffdecode_serial,
+    )
 
     n = symbols = 0
     for layer in store.feeds("layers"):
@@ -822,14 +836,17 @@ def check_k1_leaves(store, dev):
             cur = [huffdecode_chunks(**args, out=outs[0], sync=sync, sync_off=sync_off),
                    huffdecode_chunks_plain(**args, out=outs[1], sync=sync, sync_off=sync_off),
                    huffdecode_serial(**args, out=outs[2])]
+            cur_i, sync_i = huffdecode_index(**args, out=None, sync_off=sync_off)
             torch.cuda.synchronize()
             if not all(torch.equal(outs[0], o) for o in outs[1:]) or not all(
-                    torch.equal(cur[0], c) for c in cur[1:]):
+                    torch.equal(cur[0], c) for c in cur[1:] + [cur_i]) or not torch.equal(
+                    sync_i, sync):
                 raise AssertionError(f"K1 sync decode disagrees on a leaf of shape {feed.shape}")
             n += 1
             symbols += int(args["counts"].sum())
     log(f"K1 sync decode on all {n} leaves of the main path ({symbols} symbols): symbols and "
-        f"final cursors equal its plain version and the serial kernel")
+        f"final cursors equal its plain version and the one-shot kernel; the index form "
+        f"rebuilds each feed's index")
     return n
 
 
@@ -955,6 +972,8 @@ def phase_delta(dev, zcfg, params):
     launches = launch_counts()
     if [c.blob for c in cts] != [c.blob for c in host]:
         raise AssertionError("delta blobs coded on the card differ from the host's")
+    if launches["huffdecode_chain"]:
+        raise AssertionError("the delta path launched K1's chain baseline")
     if device_entropy.transfer_stats()["symbol_uploads"] or launches["plane_producer"] != 1:
         raise AssertionError(f"delta encode: launches {launches}, "
                              f"uploads {device_entropy.transfer_stats()}")
@@ -1021,8 +1040,8 @@ def phase_fp32(dev, zcfg, params):
 
 
 def _path_launches():
-    """The counts of the kernels this slice's paths run (K1's one-shot
-    serial form, K2, K3, K7)."""
+    """The counts of the kernels the file and checkpoint paths run (K1's
+    one-shot form, K2, K3, K7) and of the chain baseline (0 on every path)."""
     from repro_torch.kernels import launch_counts
 
     c = launch_counts()
@@ -1083,7 +1102,8 @@ def phase_file(dev, zcfg, params):
         launches = _path_launches()
         frames = sum(1 for _ in engine.frame_records(card))
         plan = {"huffdecode_serial": frames, "plane_consumer": frames,
-                "plane_producer": frames, "bitpack_encode_chunks": frames}
+                "plane_producer": frames, "bitpack_encode_chunks": frames,
+                "huffdecode_chain": 0}
         if launches != plan:
             raise AssertionError(f"file path launches {launches}, plan {plan}")
         if n != raw_b or not _same_file(src, back):
@@ -1176,7 +1196,7 @@ class timed_calls:
 
 def device_breakdown(prof):
     """Device ms by kernel of one ``torch.profiler`` session (CUDA only)."""
-    parts = {"K1": r"huffdecode_kernel", "K2": r"unplane_kernel", "K3": r"(?<!un)plane_kernel",
+    parts = {"K1": r"huffdecode_\w*kernel", "K2": r"unplane_kernel", "K3": r"(?<!un)plane_kernel",
              "K7": r"bitpack_kernel", "copies": r"Memcpy|Memset", "all": r"."}
     return {k: round(kernel_device_ms(prof, rx)[0], 4) for k, rx in parts.items()}
 
@@ -1341,6 +1361,8 @@ def phase_checkpoint(dev, zcfg, params):
         for name, n in ((k, restore_launches[k]) for k in ("huffdecode_serial", "plane_consumer")):
             if not n:
                 raise AssertionError(f"{name} never launched in the card restore")
+        if save_launches["huffdecode_chain"] or restore_launches["huffdecode_chain"]:
+            raise AssertionError("the checkpoint path launched K1's chain baseline")
         del tree, got
         disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(work) for f in fs)
         shutil.rmtree(work)
@@ -1559,20 +1581,121 @@ def phase_ops_path(dev, cfg, params, news):
     return launches
 
 
-def measure_k1(store, dev):
-    """K1 at a main-path shape, the feed of layer 0's largest weight (a
-    3072x768 MLP weight, 18 chunks): the sync decode the ring runs and the
-    serial index pass the feed's build runs, timed in turns (index, sync,
-    sync, index), each beside its plain version; then the sync decode at
-    256, 512 and 1,024 symbols per sub-stream with the index bytes each
-    costs."""
+def k1_serial_forms(args, sync_off, n_out, dev, reps, seg_bits=None, chain=True, plain=True):
+    """K1's self-synchronising kernel at one feed's inputs (``args``: its
+    ``launch_args()`` without ``out_bytes``, ``sync`` and ``sync_off``), in
+    its two forms: the index pass (index and cursors, as a feed's build
+    runs it) and the one-shot decode (symbols and cursors, as restores and
+    file frames run it), at ``seg_bits`` (default ``SEG_BITS``).  With
+    ``chain``, beside the chain baseline (one thread a chunk) in the same
+    call, in turns (chain, index, one-shot, one-shot, index, chain), each
+    bit for bit against it; with ``plain``, against the plain version and
+    timed beside it.  Bounds count each input read once and each output
+    written once (the index pass writes no symbol), and one decode of every
+    symbol; the synchronisation rounds each chunk took are read from the
+    kernel's counter."""
     import torch
 
     from repro_torch.kernels import (
-        huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index, huffdecode_index_plain,
-        huffdecode_serial,
+        huffdecode_chain, huffdecode_index, huffdecode_selfsync_plain, huffdecode_serial,
     )
-    from repro_torch.kernels.huffdecode import SYNC_EVERY, sync_offsets
+    from repro_torch.kernels.huffdecode import SEG_BITS, SYNC_EVERY
+
+    seg = SEG_BITS if seg_bits is None else seg_bits
+    out_s, out_c = (torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(2))
+    index = lambda: huffdecode_index(**args, out=None, sync_off=sync_off,  # noqa: E731
+                                     seg_bits=seg)
+    one = lambda: huffdecode_serial(**args, out=out_s, seg_bits=seg)  # noqa: E731
+    chain_index = lambda: huffdecode_chain(**args, out=out_c, sync_off=sync_off)  # noqa: E731
+    chain_one = lambda: huffdecode_chain(**args, out=out_c)  # noqa: E731
+    t = {"chain_index": [], "index": [], "one_shot": [], "chain_one_shot": []}
+    turns = (["chain_index"] if chain else []) + ["index", "one_shot", "one_shot", "index"] + (
+        ["chain_index", "chain_one_shot"] if chain else [])
+    fns = {"chain_index": chain_index, "index": index, "one_shot": one,
+           "chain_one_shot": chain_one}
+    for name in turns:
+        t[name].append(device_ms(fns[name], 2 if name.startswith("chain") else reps))
+    ms = {k: sum(v) / len(v) for k, v in t.items() if v}
+    dev_ms = {"index": profiled_ms(index, r"huffdecode_selfsync_kernel", reps),
+              "one_shot": profiled_ms(one, r"huffdecode_selfsync_kernel", reps)}
+    if chain:
+        dev_ms["chain_index"] = profiled_ms(chain_index, r"huffdecode_chain_kernel", 1)
+        dev_ms["chain_one_shot"] = profiled_ms(chain_one, r"huffdecode_chain_kernel", 1)
+    rounds = torch.full_like(args["counts"], -1)
+    cur_s = huffdecode_serial(**args, out=out_s, seg_bits=seg, rounds=rounds)
+    cur_i, sync_i = index()
+    if chain:
+        cur_c, sync_c = chain_index()
+        torch.cuda.synchronize()
+        if not (torch.equal(out_s, out_c) and torch.equal(cur_s, cur_c)
+                and torch.equal(cur_i, cur_c) and torch.equal(sync_i, sync_c)):
+            raise AssertionError(f"K1's self-synchronising decode at {seg}-bit segments "
+                                 f"disagrees with the chain")
+    plain_ms = None
+    if plain:
+        out_p = torch.zeros(n_out, dtype=torch.uint8, device=dev)
+        got = []
+        plain_ms = device_ms(lambda: got.append(huffdecode_selfsync_plain(
+            **args, out=out_p, sync_off=sync_off, sync_every=SYNC_EVERY, seg_bits=seg)),
+            1, warm=False)
+        if not (torch.equal(out_p, out_s) and torch.equal(got[0][0], cur_s)
+                and torch.equal(got[0][1], sync_i)):
+            raise AssertionError(f"K1's self-synchronising decode at {seg}-bit segments "
+                                 f"disagrees with its plain version")
+        del out_p, got
+    r = rounds.cpu().numpy()
+    if r.min() < 0:
+        raise AssertionError("K1's round counter was not written for every chunk")
+    symbols = int(args["counts"].sum())
+    common = sum(args[k].numel() * args[k].element_size()
+                 for k in ("words", "word_off", "plane_ids", "counts", "luts"))
+    cursors = 4 * args["counts"].numel()
+    index_bytes = common + sync_off.numel() * 8 + sync_i.numel() * 4 + cursors
+    one_bytes = common + args["out_off"].numel() * 8 + symbols + cursors
+    ops = K1_OPS_PER_SYMBOL * symbols
+    b_i, by_i = bound_ms(index_bytes, ops)
+    b_o, by_o = bound_ms(one_bytes, ops)
+    return {
+        "seg_bits": seg, "chunks": int(args["counts"].numel()), "symbols": symbols,
+        "rounds": {"max": int(r.max()), "mean": float(r.mean()),
+                   "histogram": {int(k): int(v) for k, v in zip(*np.unique(r, return_counts=True))}},
+        "index_pass": {"ms": ms["index"], "kernel_ms_profiler": dev_ms["index"],
+                       "bound_ms": b_i, "bound_by": by_i, "bytes": index_bytes,
+                       "plain_ms": plain_ms, "turns": t["index"],
+                       "chain_ms": ms.get("chain_index"),
+                       "chain_kernel_ms_profiler": dev_ms.get("chain_index")},
+        "one_shot": {"ms": ms["one_shot"], "kernel_ms_profiler": dev_ms["one_shot"],
+                     "bound_ms": b_o, "bound_by": by_o, "bytes": one_bytes,
+                     "plain_ms": plain_ms, "turns": t["one_shot"],
+                     "chain_ms": ms.get("chain_one_shot"),
+                     "chain_kernel_ms_profiler": dev_ms.get("chain_one_shot")},
+    }
+
+
+def log_serial_forms(label, f):
+    i, o = f["index_pass"], f["one_shot"]
+    log(f"K1 self-synchronising decode at {label}: {f['chunks']} chunks, {f['symbols']} "
+        f"symbols, {f['seg_bits']}-bit segments, rounds after the first pass max "
+        f"{f['rounds']['max']} mean {f['rounds']['mean']:.3f}; index pass {i['ms']:.5f} ms "
+        f"(device time alone {i['kernel_ms_profiler']}; chain {i['chain_ms']} ms, device "
+        f"{i['chain_kernel_ms_profiler']}), bound {i['bound_ms']:.6f} ms ({i['bound_by']}); "
+        f"one-shot {o['ms']:.5f} ms (device time alone {o['kernel_ms_profiler']}; chain "
+        f"{o['chain_ms']} ms, device {o['chain_kernel_ms_profiler']}), bound "
+        f"{o['bound_ms']:.6f} ms ({o['bound_by']}); plain {i['plain_ms']} ms")
+
+
+def measure_k1(store, dev):
+    """K1 at a main-path shape, the feed of layer 0's largest weight (a
+    3072x768 MLP weight, 18 chunks): the sync decode the ring runs, timed
+    in turns beside its plain version, then at 256, 512 and 1,024 symbols
+    per sub-stream with the index bytes each costs; the self-synchronising
+    kernel's index pass and one-shot decode beside the chain baseline in
+    the same call (``k1_serial_forms``), then at 512, 544, 1,024 and
+    2,048-bit segments, the fastest noted."""
+    import torch
+
+    from repro_torch.kernels import huffdecode_chunks, huffdecode_chunks_plain, huffdecode_index
+    from repro_torch.kernels.huffdecode import SEG_BITS, SYNC_EVERY, sync_offsets
 
     layer0 = store.feeds("layers")[0]
     sizes = [int(np.prod(f.shape)) for f in layer0]
@@ -1580,60 +1703,51 @@ def measure_k1(store, dev):
     args = feed.launch_args()
     n_out = args.pop("out_bytes")
     sync, sync_off = args.pop("sync"), args.pop("sync_off")
-    out, out_i, out_p, out_ip = (torch.zeros(n_out, dtype=torch.uint8, device=dev)
-                                 for _ in range(4))
+    out, out_p = (torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(2))
     run = lambda: huffdecode_chunks(**args, out=out, sync=sync, sync_off=sync_off)  # noqa: E731
-    index = lambda: huffdecode_index(**args, out=out_i, sync_off=sync_off)  # noqa: E731
-    i_a = device_ms(index, 3)
     s_a = device_ms(run, 20)
     s_b = device_ms(run, 20)
-    i_b = device_ms(index, 3)
-    ms, index_ms = (s_a + s_b) / 2, (i_a + i_b) / 2
+    ms = (s_a + s_b) / 2
     kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 10)
-    index_kernel_ms = profiled_ms(index, r"huffdecode_kernel", 2)
-    # the one-shot serial decode that restores and file frames run
-    out_s = torch.zeros(n_out, dtype=torch.uint8, device=dev)
-    serial = lambda: huffdecode_serial(**args, out=out_s)  # noqa: E731
-    serial_ms = device_ms(serial, 3)
-    serial_kernel_ms = profiled_ms(serial, r"huffdecode_kernel", 2)
     plain = []
     plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(
         **args, out=out_p, sync=sync, sync_off=sync_off)), 3)
-    plain_index = []                            # one untimed-warm call: it takes ~60 s
-    plain_index_ms = device_ms(lambda: plain_index.append(huffdecode_index_plain(
-        **args, out=out_ip, sync_off=sync_off)), 1, warm=False)
     cur_k = run()
-    cur_i, sync_i = index()
-    cur_s = serial()
     torch.cuda.synchronize()
-    if not torch.equal(out, out_s) or not torch.equal(cur_k, cur_s):
-        raise AssertionError("K1's one-shot decode disagrees at the main-path shape")
-    if not (torch.equal(out, out_p) and torch.equal(out, out_i) and torch.equal(out, out_ip)
-            and torch.equal(cur_k, plain[0]) and torch.equal(cur_k, cur_i)
-            and torch.equal(cur_k, plain_index[0][0]) and torch.equal(sync_i, sync)
-            and torch.equal(plain_index[0][1], sync)):
-        raise AssertionError("K1 kernels and plain versions disagree at the main-path shape")
+    if not (torch.equal(out, out_p) and torch.equal(cur_k, plain[0])):
+        raise AssertionError("K1's sync decode and its plain version disagree at the "
+                             "main-path shape")
     symbols = int(args["counts"].sum())
     inputs = sum(t.numel() * t.element_size() for t in args.values())
     sync_bytes = sync.numel() * 4 + sync_off.numel() * 8
-    # each input read once, symbols and cursors written once; the index pass
-    # writes the index where the sync decode reads it
+    # each input read once (the index too), symbols and cursors written once
     nbytes = inputs + sync_bytes + symbols + 4 * cur_k.numel()
     b, by = bound_ms(nbytes, K1_OPS_PER_SYMBOL * symbols)
     log(f"K1 at {tuple(feed.shape)}: {args['counts'].numel()} chunks, {symbols} symbols, "
         f"{args['words'].numel() * 4} payload bytes, {sync.numel()} sync points every "
         f"{SYNC_EVERY} symbols ({sync_bytes} B of index); sync decode {ms:.5f} ms ({s_a:.5f} "
         f"then {s_b:.5f}; device time alone, profiler: {kernel_ms}), plain {plain_ms:.2f} ms; "
-        f"index pass {index_ms:.4f} ms ({i_a:.4f} then {i_b:.4f}; device time alone "
-        f"{index_kernel_ms}), plain {plain_index_ms:.1f} ms; one-shot serial decode "
-        f"{serial_ms:.4f} ms (device time alone {serial_kernel_ms}); bound {b:.6f} ms "
-        f"({by}, {nbytes} B)")
+        f"bound {b:.6f} ms ({by}, {nbytes} B)")
+
+    forms = k1_serial_forms(args, sync_off, n_out, dev, reps=10)
+    log_serial_forms(str(tuple(feed.shape)), forms)
+    seg_sweep = {}
+    for seg in (512, 544, 1024, 2048):
+        f = forms if seg == SEG_BITS else k1_serial_forms(
+            args, sync_off, n_out, dev, reps=10, seg_bits=seg, chain=False, plain=False)
+        seg_sweep[seg] = {"index_ms": f["index_pass"]["ms"], "one_shot_ms": f["one_shot"]["ms"],
+                          "index_kernel_ms_profiler": f["index_pass"]["kernel_ms_profiler"],
+                          "one_shot_kernel_ms_profiler": f["one_shot"]["kernel_ms_profiler"],
+                          "rounds": f["rounds"]}
+    fastest = min(seg_sweep, key=lambda k: seg_sweep[k]["index_ms"] + seg_sweep[k]["one_shot_ms"])
+    log(f"K1 self-synchronising decode by segment bits at {tuple(feed.shape)} (the paths run "
+        f"{SEG_BITS}; fastest {fastest}): {seg_sweep}")
 
     sweep = {}
     counts_h = args["counts"].cpu().numpy()
     for every in (256, 512, 1024):
         off = torch.from_numpy(sync_offsets(counts_h, every)).to(dev)
-        _, idx = huffdecode_index(**args, out=out_i, sync_off=off, sync_every=every)
+        _, idx = huffdecode_index(**args, out=None, sync_off=off, sync_every=every)
         out_s = torch.zeros(n_out, dtype=torch.uint8, device=dev)
         go = lambda: huffdecode_chunks(  # noqa: E731
             **args, out=out_s, sync=idx, sync_off=off, sync_every=every)
@@ -1646,10 +1760,8 @@ def measure_k1(store, dev):
                         "index_bytes": idx.numel() * 4 + off.numel() * 8}
     log(f"K1 sync decode by symbols per sub-stream at {tuple(feed.shape)}: {sweep}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "kernel_ms_profiler": kernel_ms, "index_ms": index_ms,
-            "index_plain_ms": plain_index_ms, "index_kernel_ms_profiler": index_kernel_ms,
-            "serial_ms": serial_ms, "serial_kernel_ms_profiler": serial_kernel_ms,
-            "sweep": sweep}
+            "kernel_ms_profiler": kernel_ms, "sweep": sweep, "serial_forms": forms,
+            "seg_sweep": seg_sweep, "seg_fastest": fastest}
 
 
 def measure_k2(dev):
@@ -1892,11 +2004,13 @@ def free_card():
 def build_plan(store):
     """The build's launches, planned from the store's blobs: K3 per layer
     and dtype as the batch cap splits it, K7 per Huffman leaf as its
-    per-launch chunk cap splits it, K1's index pass per Huffman leaf."""
+    per-launch chunk cap splits it, K1's index pass (the
+    self-synchronising kernel) per Huffman leaf; no other K1 form."""
     from repro_torch.core import bitlayout
     from repro_torch.core.device_plane import MAX_BATCH_BYTES
 
-    plan = {"plane_producer": 0, "bitpack_encode_chunks": 0, "huffdecode_index": 0}
+    plan = {"plane_producer": 0, "bitpack_encode_chunks": 0, "huffdecode_index": 0,
+            "huffdecode_serial": 0, "huffdecode_chain": 0}
     for key in store.stack_keys:
         for i in range(store.n_layers(key)):
             leaves = store.manifest(key, i)["leaves"]
@@ -2009,9 +2123,10 @@ def run_rings(dev, cfg, store, params, label, out, seed):
     """The ring at each of TILES against the plain step on B=BATCH
     requests of PROMPT + STEPS tokens: logits bit-identical, every entry
     of the final decode state (caches, or an SSM model's recurrent state
-    and conv history) bit-identical, no payload upload or serial K1, at
-    most ``RING x tiles`` slots resident, K1/K2 launches equal to the
-    plan; then a profiler trace of 4 ring steps at each."""
+    and conv history) bit-identical, no payload upload and no K1 form but
+    the sync decode, at most ``RING x tiles`` slots resident, K1/K2
+    launches equal to the plan; then a profiler trace of 4 ring steps at
+    each."""
     import torch
 
     from repro_torch.core import device_entropy
@@ -2064,8 +2179,10 @@ def run_rings(dev, cfg, store, params, label, out, seed):
             if launches[name] != n * n_steps:
                 raise AssertionError(f"{label} tiles={tiles} {name}: {launches[name]} "
                                      f"launches, plan {n * n_steps}")
-        if launches["huffdecode_serial"] or launches["huffdecode_index"] or uploads:
-            raise AssertionError(f"{label} ring: serial K1 or uploads: {launches}, {uploads}")
+        if (launches["huffdecode_serial"] or launches["huffdecode_index"]
+                or launches["huffdecode_chain"] or uploads):
+            raise AssertionError(f"{label} ring: a K1 form other than the sync decode, or "
+                                 f"uploads: {launches}, {uploads}")
         if store.peak_resident > RING * tiles:
             raise AssertionError(f"{label} peak residency {store.peak_resident} > "
                                  f"{RING} x {tiles}")
@@ -2147,6 +2264,7 @@ def run_kv_tier(dev, zcfg, cfg, store, params, label, out, n_prompt, n_gen, seed
         "plane_consumer": per_step["plane_consumer"] * n_pos + len(kv.keys) * L * sum(visible),
         "huffdecode_chunks": per_step["huffdecode_chunks"] * n_pos,
         "huffdecode_index": 0,
+        "huffdecode_chain": 0,
     }
     for name, n in kv_plan.items():
         if launches[name] != n:
@@ -2579,7 +2697,8 @@ def phase_zamba2(dev, zcfg):
             sizes.setdefault(entries[key]["dtype"], []).append(entries[key]["raw"])
         restore_plan = {"huffdecode_serial": sum(n > 0 for n in huff.values()),
                         "plane_consumer": sum(k3_windows(g, MAX_BATCH_BYTES)
-                                              for g in sizes.values())}
+                                              for g in sizes.values()),
+                        "huffdecode_chain": 0}
         for name, n in restore_plan.items():
             if restore_launches[name] != n:
                 raise AssertionError(f"zamba2 restore: {name} {restore_launches[name]} "
@@ -2615,22 +2734,21 @@ def phase_zamba2(dev, zcfg):
 
 
 def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
-    """K1 (sync decode, index pass, one-shot decode), K2, K3 and K7 at one
-    stored leaf: ``feed`` its payload feed, ``x`` its param on the card.
-    Each kernel is timed beside its bound and its plain version and held
-    against it: K1's sync decode over the whole leaf (its serial forms
-    against the sync decode: their plain version takes a step a symbol of
-    a chunk, ~60 s a launch), K2 by the round trip of K3's planes to
-    ``x``, K3 and K7 over the whole leaf, or over its first
-    ``plain_prefix`` elements where the plain versions' int64 keys would
-    not fit beside the model."""
+    """K1 (sync decode; the self-synchronising kernel's index pass and
+    one-shot decode beside the chain baseline, ``k1_serial_forms``), K2, K3
+    and K7 at one stored leaf: ``feed`` its payload feed, ``x`` its param
+    on the card.  Each kernel is timed beside its bound and its plain
+    version and held against it: K1 over the whole leaf, K2 by the round
+    trip of K3's planes to ``x``, K3 and K7 over the whole leaf, or over its
+    first ``plain_prefix`` elements where the plain versions' int64 keys
+    would not fit beside the model."""
     import torch
 
     from repro_torch.core import huffman
     from repro_torch.kernels import (
         bitpack_encode_chunks, bitpack_encode_chunks_plain, huffdecode_chunks,
-        huffdecode_chunks_plain, huffdecode_index, huffdecode_serial, plane_consumer,
-        plane_consumer_plain, plane_producer, plane_producer_plain,
+        huffdecode_chunks_plain, plane_consumer, plane_consumer_plain, plane_producer,
+        plane_producer_plain,
     )
     from repro_torch.kernels.fused_plane import ELEM_DTYPES
 
@@ -2641,47 +2759,34 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
         raise AssertionError(f"the {label} leaf has no Huffman-coded chunk")
     n_out = args.pop("out_bytes")
     sync, sync_off = args.pop("sync"), args.pop("sync_off")
-    out, out_p, out_i, out_s = (torch.zeros(n_out, dtype=torch.uint8, device=dev)
-                                for _ in range(4))
+    out, out_p = (torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(2))
     run = lambda: huffdecode_chunks(**args, out=out, sync=sync, sync_off=sync_off)  # noqa: E731
-    index = lambda: huffdecode_index(**args, out=out_i, sync_off=sync_off)  # noqa: E731
-    serial = lambda: huffdecode_serial(**args, out=out_s)  # noqa: E731
     ms = device_ms(run, reps)
     kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 5)
     plain = []
     plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(
         **args, out=out_p, sync=sync, sync_off=sync_off)), 1)
-    index_ms = device_ms(index, 2)
-    index_kernel_ms = profiled_ms(index, r"huffdecode_kernel", 1)
-    serial_ms = device_ms(serial, 2)
-    serial_kernel_ms = profiled_ms(serial, r"huffdecode_kernel", 1)
     cur = run()
-    cur_i, sync_i = index()
-    cur_s = serial()
     torch.cuda.synchronize()
-    if not (torch.equal(out, out_p) and torch.equal(out, out_i) and torch.equal(out, out_s)
-            and torch.equal(cur, plain[0]) and torch.equal(cur, cur_i)
-            and torch.equal(cur, cur_s) and torch.equal(sync_i, sync)):
-        raise AssertionError(f"K1 disagrees at the {label} leaf")
-    del out_p, out_i, out_s, plain
+    if not (torch.equal(out, out_p) and torch.equal(cur, plain[0])):
+        raise AssertionError(f"K1's sync decode disagrees with its plain version at the "
+                             f"{label} leaf")
+    del out_p, plain, out
     symbols = int(args["counts"].sum())
     inputs = sum(t.numel() * t.element_size() for t in args.values())
     sync_bytes = sync.numel() * 4 + sync_off.numel() * 8
     k1_bytes = inputs + sync_bytes + symbols + 4 * cur.numel()
     b, by = bound_ms(k1_bytes, K1_OPS_PER_SYMBOL * symbols)
+    forms = k1_serial_forms(args, sync_off, n_out, dev, reps=3)
     rows = {"K1": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                    "kernel_ms_profiler": kernel_ms, "chunks": int(args["counts"].numel()),
-                   "symbols": symbols, "bytes": k1_bytes,
-                   "index_pass": {"ms": index_ms, "kernel_ms_profiler": index_kernel_ms,
-                                  "plain_ms": None},
-                   "one_shot": {"ms": serial_ms, "kernel_ms_profiler": serial_kernel_ms,
-                                "plain_ms": None}}}
-    del out
+                   "symbols": symbols, "bytes": k1_bytes, "seg_bits": forms["seg_bits"],
+                   "rounds": forms["rounds"], "index_pass": forms["index_pass"],
+                   "one_shot": forms["one_shot"]}}
     log(f"K1 at {label} {tuple(x.shape)}: {rows['K1']['chunks']} chunks, {symbols} symbols; "
         f"sync decode {ms:.5f} ms (device time alone {kernel_ms}), plain {plain_ms:.2f} ms, "
-        f"bound {b:.6f} ms ({by}, {k1_bytes} B); index pass {index_ms:.4f} ms (device time "
-        f"alone {index_kernel_ms}); one-shot decode {serial_ms:.4f} ms (device time alone "
-        f"{serial_kernel_ms})")
+        f"bound {b:.6f} ms ({by}, {k1_bytes} B)")
+    log_serial_forms(f"{label} {tuple(x.shape)}", forms)
 
     x = x.reshape(-1).view(ELEM_DTYPES[itemsize])
     if x.numel() % chunk:                        # zero-padded to whole chunks, as the store pads
@@ -2837,10 +2942,21 @@ def main() -> int:
                             launches=ph["launches"].get(counter, 0))
                 for label, ph in ssm.items()}
 
+    serial_keys = ("seg_bits", "rounds", "index_pass", "one_shot")
+
+    def k1_sync(r):
+        """A leaf's K1 reading without its self-synchronising forms."""
+        return {k: v for k, v in r.items() if k not in serial_keys}
+
+    def k1_serial(r, launches):
+        """A leaf's self-synchronising readings, with a path's launches."""
+        return dict({k: r[k] for k in serial_keys},
+                    index_pass_launches=launches.get("huffdecode_index", 0),
+                    one_shot_launches=launches.get("huffdecode_serial", 0))
+
+    k1_moe = moe_rows("K1", "huffdecode_chunks")
     k1_ssm = ssm_rows("K1", "huffdecode_chunks")
-    for label, ph in ssm.items():
-        k1_ssm[label].update(index_pass_launches=ph["launches"].get("huffdecode_index", 0),
-                             one_shot_launches=ph["launches"].get("huffdecode_serial", 0))
+    sf = k1["serial_forms"]
     # Every row's ms is device_ms (L2 evicted before each call) and its
     # kernel_ms_profiler the kernel's device time alone.
     no_library = "no single PyTorch call computes it"
@@ -2853,23 +2969,39 @@ def main() -> int:
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None, "library": no_library,
          "kernel_ms_profiler": k1["kernel_ms_profiler"], "sync_every": SYNC_EVERY,
-         "leaves_checked": k1_leaves,
-         # the serial index pass each feed's build runs once (launches per build)
-         "index_pass": {"launches": build_launches["huffdecode_index"],
-                        "ms": k1["index_ms"], "plain_ms": k1["index_plain_ms"],
-                        "kernel_ms_profiler": k1["index_kernel_ms_profiler"]},
-         "sync_every_sweep": k1["sweep"], "ring_trace": ring,
-         # the one-shot serial decode: every card file frame and restore
-         "one_shot": {"launches_file": files["launches"]["huffdecode_serial"],
-                      "launches_checkpoint_restore": ckpt["restore_launches"]["huffdecode_serial"],
-                      "ms": k1["serial_ms"], "kernel_ms_profiler": k1["serial_kernel_ms_profiler"]},
-         "granite": dict(gk["K1"], launches=gl["huffdecode_chunks"], shape=W_IN,
-                         index_pass=dict(gk["K1"]["index_pass"], launches=gl["huffdecode_index"]),
-                         one_shot=dict(gk["K1"]["one_shot"], launches=gl["huffdecode_serial"])),
-         "moe": {label: dict(r, index_pass_launches=moe[label]["launches"]["huffdecode_index"],
-                             one_shot_launches=moe[label]["launches"]["huffdecode_serial"])
-                 for label, r in moe_rows("K1", "huffdecode_chunks").items()},
-         "ssm": k1_ssm},
+         "leaves_checked": k1_leaves, "sync_every_sweep": k1["sweep"], "ring_trace": ring,
+         "granite": dict(k1_sync(gk["K1"]), launches=gl["huffdecode_chunks"], shape=W_IN),
+         "moe": {label: dict(r, expert=k1_sync(r["expert"]), router=k1_sync(r["router"]))
+                 for label, r in k1_moe.items()},
+         "ssm": {label: {k: (k1_sync(v) if isinstance(v, dict) else v) for k, v in r.items()}
+                 for label, r in k1_ssm.items()}},
+        # The same source's self-synchronising kernel: the main path runs it
+        # once a Huffman leaf at the store build (the index pass); the file
+        # and checkpoint paths, deltas and the KV tier run its one-shot form.
+        # Its readings are the index pass's, with the one-shot form and the
+        # chain baseline (one thread a chunk, no path launches it) beside.
+        {"name": "huffdecode_selfsync", "route": "cuda",
+         "source": "src/repro_torch/csrc/huffdecode.cu",
+         "replaces": "src/repro/kernels/huffdecode.py:92",
+         "launches": build_launches["huffdecode_index"],
+         "launches_per_build": build_plan["huffdecode_index"], "max_abs_err": k1_err,
+         "ms": sf["index_pass"]["ms"], "plain_ms": sf["index_pass"]["plain_ms"],
+         "bound_ms": sf["index_pass"]["bound_ms"], "bound_by": sf["index_pass"]["bound_by"],
+         "library_ms": None, "library": no_library,
+         "kernel_ms_profiler": sf["index_pass"]["kernel_ms_profiler"],
+         "seg_bits": sf["seg_bits"], "rounds": sf["rounds"],
+         "index_pass": sf["index_pass"],
+         "one_shot": dict(sf["one_shot"], launches_file=files["launches"]["huffdecode_serial"],
+                          launches_checkpoint_restore=ckpt["restore_launches"][
+                              "huffdecode_serial"]),
+         "seg_bits_sweep": k1["seg_sweep"], "seg_bits_fastest": k1["seg_fastest"],
+         "granite": dict(k1_serial(gk["K1"], gl), shape=W_IN),
+         "moe": {label: {leaf: k1_serial(moe[label]["kernels"][leaf]["K1"],
+                                         moe[label]["launches"])
+                         for leaf in ("expert", "router")} for label in moe},
+         "ssm": {label: {leaf: k1_serial(r["K1"], ssm[label]["launches"])
+                         for leaf, r in ssm[label]["kernels"].items() if "K1" in r}
+                 for label in ssm}},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",

@@ -72,13 +72,18 @@ def simulate_transfer(
     *,
     direction: str = "download",
     config: zipnn.ZipNNConfig = zipnn.DEFAULT,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     options: Optional[CodecOptions] = None,
     device: Any = "cuda",
 ) -> TransferReport:
     """Measure one hub transfer of ``data``: its compress (upload) or
     decompress (download) time, and the wire times of the raw and the
     compressed bytes."""
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     bw = CHANNELS[channel] * 1e6
     t0 = time.perf_counter()
     blob = zipnn.compress_bytes(data, dtype_name, config, options=opts, device=device)
@@ -138,13 +143,18 @@ def simulate_file_transfer(
     direction: str = "download",
     config: zipnn.ZipNNConfig = zipnn.DEFAULT,
     window_bytes: Optional[int] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     options: Optional[CodecOptions] = None,
     device: Any = "cuda",
 ) -> TransferReport:
     """:func:`simulate_transfer` for a file, streamed through the engine's
     windowed ``ZNS1`` container (O(window) memory).  Downloads also report
     the prefetch-overlapped time (:attr:`TransferReport.overlapped_speedup`)."""
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     window = engine.DEFAULT_WINDOW if window_bytes is None else window_bytes
     bw = CHANNELS[channel] * 1e6
     with tempfile.TemporaryDirectory() as td:

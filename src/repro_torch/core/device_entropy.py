@@ -21,10 +21,12 @@ device and never uploaded.  Envelope: the canonical ``huffman`` coder
 chunk of a parsed container decodes in one launch of
 :func:`repro_torch.kernels.huffdecode_chunks` — per-chunk LUT row
 selection over stacked canonical tables.  The one-shot
-:func:`decode_planes` runs the serial kernel (one thread per chunk, serial
-bit cursor inside a chunk).  A :class:`PayloadFeed` runs that serial pass
-once, at build, as :func:`~repro_torch.kernels.huffdecode_index`, which
-also records the bit cursor before every
+:func:`decode_planes` runs K1's self-synchronising decode, which needs no
+index: one block a chunk, segments started at guessed bit offsets and
+synchronised with their neighbours before they decode.  A
+:class:`PayloadFeed` runs the same kernel once, at build, as
+:func:`~repro_torch.kernels.huffdecode_index`, which writes no symbols but
+the bit cursor before every
 :data:`~repro_torch.kernels.huffdecode.SYNC_EVERY`-th symbol of each chunk
 (the sync index, kept resident beside the words); every later decode cuts
 each chunk at those cursors into sub-streams that decode in parallel.  The
@@ -501,8 +503,8 @@ class _ResidentStream:
     ``run()`` allocates the output buffer (every plane back to back),
     copies the splice runs into place and launches K1 over every HUFF
     chunk; it returns the buffer and the cursors (still on the device).
-    K1 decodes serially until :meth:`index` has built the sync index, and
-    from the index after that.
+    K1 runs its self-synchronising decode until :meth:`index` has built the
+    sync index, and decodes from the index after that.
     """
 
     def __init__(self, entries_all, payloads_all, tables_all, chunk_bytes,
@@ -591,16 +593,17 @@ class _ResidentStream:
             cursors = huffdecode_chunks(*self._k1_args(), out, self.sync, self.sync_off)
         return out, cursors
 
-    def index(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The serial decode that also builds the sync index, which every
-        later :meth:`run` decodes from; returns what :meth:`run` does."""
-        out = self._spliced()
-        cursors = None
-        if self.jobs:
-            sync_off = _upload(sync_offsets(self.counts_h), self.device)
-            cursors, sync = huffdecode_index(*self._k1_args(), out, sync_off)
-            self.sync, self.sync_off = sync, sync_off
-        return out, cursors
+    def index(self) -> Optional[torch.Tensor]:
+        """Build the sync index, which every later :meth:`run` decodes
+        from: one launch of the self-synchronising decode that writes the
+        index and the cursors, no symbols.  Returns the cursors (None when
+        no chunk is HUFF)."""
+        if not self.jobs:
+            return None
+        sync_off = _upload(sync_offsets(self.counts_h), self.device)
+        cursors, self.sync = huffdecode_index(*self._k1_args(), None, sync_off)
+        self.sync_off = sync_off
+        return cursors
 
     def planes(self, out: torch.Tensor) -> List[torch.Tensor]:
         views, off = [], 0
@@ -624,15 +627,18 @@ def decode_planes(
     params: codec.CodecParams,
     pool=None,
     device: Any = "cuda",
+    device_resident: bool = False,
 ) -> List[torch.Tensor]:
     """Decode one parsed stream's planes on ``device``.
 
     Every payload's CRC is verified first (same errors, same order as
     :meth:`~.codec.PlaneCodec.decode_into`), every ``HUFF`` chunk across
-    all planes decodes in one launch of the serial K1, and the cursors are
-    checked as ``huffman.decode_many`` checks them.  Returns per-plane flat uint8
-    tensors on ``device``, byte-identical to
-    :func:`.codec.decompress_plane`.
+    all planes decodes in one launch of K1's self-synchronising decode,
+    and the cursors are checked as ``huffman.decode_many`` checks them.
+    Returns per-plane flat uint8 tensors, byte-identical to
+    :func:`.codec.decompress_plane`: on ``device`` with
+    ``device_resident``, else copied to the CPU (the reference's default,
+    host planes).
     """
     dev = _util.resolve_device(device)
     rs = _ResidentStream(
@@ -640,6 +646,8 @@ def decode_planes(
     )
     out, cursors = rs.run()
     rs.check(cursors, payloads_all)
+    if not device_resident:
+        out = out.cpu()
     return rs.planes(out)
 
 
@@ -652,10 +660,11 @@ class PayloadFeed:
 
     * payload CRCs, the HUFF metadata validation and the bit-cursor /
       pad-bit checks run at build time (the payloads are immutable, so one
-      verification covers every later decode).  The warmup launch, the
-      serial index pass, produces the cursors and the sync index: the bit
-      cursor before every ``SYNC_EVERY``-th symbol of each chunk, 4 bytes
-      per ``SYNC_EVERY`` symbols, at no extra launch;
+      verification covers every later decode).  One launch at build, the
+      index pass (K1's self-synchronising decode, every chunk's segments
+      in parallel, writing no symbols), produces the cursors and the sync
+      index: the bit cursor before every ``SYNC_EVERY``-th symbol of each
+      chunk, 4 bytes per ``SYNC_EVERY`` symbols;
     * the packed words, stacked LUTs, per-chunk metadata, the sync index
       and the splice stay resident on ``device``;
     * :meth:`decode` re-runs the copies and the K1 launch from those
@@ -678,10 +687,9 @@ class PayloadFeed:
         self._rs = _ResidentStream(
             entries_all, payloads_all, tables_all, params.chunk_bytes, pool, dev
         )
-        # Warmup launch: the index pass, whose cursors are integrity-checked
-        # once for the feed's life.
-        _, cursors = self._rs.index()
-        self._rs.check(cursors, payloads_all)
+        # The index pass, whose cursors are integrity-checked once for the
+        # feed's life.
+        self._rs.check(self._rs.index(), payloads_all)
 
     @property
     def device(self) -> torch.device:

@@ -37,6 +37,7 @@ place: their raw values never go to the host, only their planes do.
 
 from __future__ import annotations
 
+import os
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +49,7 @@ from ..kernels.fused_plane import CHUNK_ALIGN_BYTES, ELEM_DTYPES
 from . import bitlayout, codec
 
 __all__ = [
+    "DEFAULT_BATCH_BYTES",
     "MAX_BATCH_BYTES",
     "PlanedArray",
     "supports",
@@ -55,10 +57,35 @@ __all__ = [
     "produce_planes_batched",
 ]
 
+DEFAULT_BATCH_BYTES = 256 << 20
+
+
+def _batch_bytes_from_env(default: int = DEFAULT_BATCH_BYTES) -> int:
+    """The launch-window cap: ``ZIPNN_MAX_BATCH_BYTES`` when it is set, a
+    positive integer (plain or ``0x``-prefixed), else ``default``; any
+    other value raises ``ValueError``.
+
+    Read once, at import.  Launches split on chunk boundaries and payload
+    bytes are per chunk, so the cap moves time and peak memory only, never
+    a byte."""
+    raw = os.environ.get("ZIPNN_MAX_BATCH_BYTES")
+    if raw is None:
+        return default
+    try:
+        value = int(raw, 0)
+    except ValueError:
+        raise ValueError(
+            f"ZIPNN_MAX_BATCH_BYTES={raw!r} is not an integer byte count"
+        ) from None
+    if value <= 0:
+        raise ValueError(f"ZIPNN_MAX_BATCH_BYTES must be positive, got {value}")
+    return value
+
+
 # One launch is capped so the packed elements and their planes stay well
 # inside device memory; larger groups split into several launches.  Chunks
 # never straddle tensors, so the split cannot change any byte.
-MAX_BATCH_BYTES = 256 << 20
+MAX_BATCH_BYTES = _batch_bytes_from_env()
 
 
 class PlanedArray(np.ndarray):

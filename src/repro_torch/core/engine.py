@@ -193,6 +193,9 @@ class CompressWriter:
         config=None,
         *,
         window_bytes: int = DEFAULT_WINDOW,
+        threads: Optional[int] = None,
+        backend: Optional[str] = None,
+        entropy_backend: Optional[str] = None,
         options: Optional[CodecOptions] = None,
         pipeline_depth: int = 2,
         device: Any = "cuda",
@@ -202,7 +205,10 @@ class CompressWriter:
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self._config = zipnn.DEFAULT if config is None else config
-        self._opts = _frame_options(self._config, resolve_options(options))
+        opts = resolve_options(
+            options, threads=threads, backend=backend, entropy_backend=entropy_backend
+        )
+        self._opts = _frame_options(self._config, opts)
         self._device = device
         self._dtype_name = dtype_name
         align = bitlayout.layout_for(dtype_name).align
@@ -336,6 +342,9 @@ class DecompressReader:
         fp: PathOrFile,
         config=None,
         *,
+        threads: Optional[int] = None,
+        backend: Optional[str] = None,
+        entropy_backend: Optional[str] = None,
         options: Optional[CodecOptions] = None,
         pipeline_depth: int = 2,
         device: Any = "cuda",
@@ -345,7 +354,10 @@ class DecompressReader:
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self._config = zipnn.DEFAULT if config is None else config
-        self._opts = _frame_options(self._config, resolve_options(options))
+        opts = resolve_options(
+            options, threads=threads, backend=backend, entropy_backend=entropy_backend
+        )
+        self._opts = _frame_options(self._config, opts)
         self._device = device
         self._depth = pipeline_depth
         self._fp, self._own = _open(fp, "rb")
@@ -497,6 +509,9 @@ def compress_file(
     config=None,
     *,
     window_bytes: int = DEFAULT_WINDOW,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     options: Optional[CodecOptions] = None,
     pipeline_depth: int = 2,
     device: Any = "cuda",
@@ -504,6 +519,9 @@ def compress_file(
     """Stream-compress ``src`` into a ``ZNS1`` container at ``dst``, one
     window at a time (peak extra memory O(window)).  Returns
     ``(raw_bytes, comp_bytes)``."""
+    options = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     fin, own_in = _open(src, "rb")
     try:
         with CompressWriter(
@@ -526,11 +544,17 @@ def decompress_file(
     dst: PathOrFile,
     config=None,
     *,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     options: Optional[CodecOptions] = None,
     pipeline_depth: int = 2,
     device: Any = "cuda",
 ) -> int:
     """Stream-decompress a ``ZNS1`` container; returns raw bytes written."""
+    options = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     fout, own_out = _open(dst, "wb")
     try:
         with DecompressReader(

@@ -22,11 +22,22 @@ and K2 plane consumer on decode) on the entry point's ``device``.
 ``device_resident`` is a semantic flag: it changes what a decode entry
 point returns (a tensor on the entry point's ``device`` instead of a CPU
 tensor).
+
+The legacy per-call kwargs ``threads=``, ``backend=``, ``entropy_backend=``
+and ``device_resident=`` keep working on every entry point that takes
+``options=``, as in the reference: :func:`resolve_options` merges them
+with the precedence
+
+    explicit legacy kwarg  >  options field  >  ZipNNConfig field
+
+and one :class:`DeprecationWarning` for the three codec knobs
+(``device_resident`` is a flag, not a knob, and does not warn).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -66,18 +77,43 @@ class CodecOptions:
 DEFAULT_OPTIONS = CodecOptions()
 
 
+_LEGACY_MSG = (
+    "passing threads=/backend=/entropy_backend= per call is deprecated; "
+    "pass options=CodecOptions(...) instead (explicit legacy kwargs still "
+    "override the options fields)"
+)
+
+
 def resolve_options(
     options: Optional[CodecOptions] = None,
     *,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device_resident: Optional[bool] = None,
+    _stacklevel: int = 3,
 ) -> CodecOptions:
-    """The options bag for one call: ``options`` (default bag when None)
-    with an explicit ``device_resident`` kwarg applied over its field."""
+    """The options bag for one call: ``options`` (the default bag when
+    None) with every explicit legacy kwarg applied over its field.
+
+    The three codec knobs emit one :class:`DeprecationWarning`, attributed
+    ``_stacklevel`` frames up (the entry point's caller by default);
+    ``device_resident`` does not warn.  ``None`` fields still mean "defer
+    to the ``ZipNNConfig``" downstream."""
     if options is None:
         options = DEFAULT_OPTIONS
+    legacy: Dict[str, Any] = {}
+    if threads is not None:
+        legacy["threads"] = threads
+    if backend is not None:
+        legacy["backend"] = backend
+    if entropy_backend is not None:
+        legacy["entropy_backend"] = entropy_backend
+    if legacy:
+        warnings.warn(_LEGACY_MSG, DeprecationWarning, stacklevel=_stacklevel)
     if device_resident is not None:
-        return options.replace(device_resident=device_resident)
-    return options
+        legacy["device_resident"] = device_resident
+    return dataclasses.replace(options, **legacy) if legacy else options
 
 
 def resolve_backend(

@@ -248,12 +248,17 @@ def compress_bytes(
     *,
     delta: bool = False,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device: Any = "cuda",
 ) -> bytes:
     """Compress a raw little-endian byte stream interpreted as ``dtype_name``
     (``delta=True``: the stream is an XOR delta, coded with the §4.2
     method choice)."""
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     if isinstance(raw, (bytes, memoryview, bytearray)):
         buf = np.frombuffer(raw, dtype=np.uint8)
     else:
@@ -324,7 +329,8 @@ def _entropy_decode(
     huff = any(e.method == codec.Method.HUFF for pe in meta.entries for e in pe)
     if huff and _decode_entropy(config, opts, meta.chunk_bytes, device) == "device":
         planes: Planes = device_entropy.decode_planes(
-            meta.entries, payload_lists, meta.tables, params, pool=pool, device=device
+            meta.entries, payload_lists, meta.tables, params, pool=pool, device=device,
+            device_resident=True,
         )
     else:
         planes = [
@@ -353,6 +359,9 @@ def decompress_bytes(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device: Any = "cuda",
 ) -> bytes:
     """Decompress one ZNN1 blob back to its raw little-endian byte stream.
@@ -361,12 +370,15 @@ def decompress_bytes(
     on ``device`` when the knobs resolve there (see the module docstring);
     only the elements come back.  Bytes are identical on every route.
     """
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     pool = _pool(config, opts)
     layout, planes, tail = _entropy_decode(blob, config, opts, pool, device)
     if planes and _numel(planes[0]) and _decode_backend(config, opts, layout, device) == "device":
         dev = _util.resolve_device(device)
-        elems = device_unplane.consume_planes(_on_device(planes, dev), layout)
+        elems = device_unplane.consume_planes(
+            _on_device(planes, dev), layout, device_resident=True)
         body = elems.cpu().view(torch.uint8).numpy()
     else:
         host = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p for p in planes]
@@ -428,6 +440,9 @@ def compress_array(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device: Any = "cuda",
 ) -> CompressedTensor:
     """Compress one tensor.
@@ -436,7 +451,9 @@ def compress_array(
     path (``options.backend``) K3 planes it on ``device`` — a tensor
     already there is read in place, and only its planes come back.
     """
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     name = _util.dtype_name(arr.dtype)
     layout = _leaf_layout(arr)
     if layout is not None and arr.numel():
@@ -479,7 +496,7 @@ def _decompress_array_device(
     meta, layout, payload_lists, params = stream
     elems = device_unplane.consume_payloads(
         meta.entries, payload_lists, meta.tables, params, layout,
-        pool=_pool(config, opts), device=dev,
+        pool=_pool(config, opts), device=dev, device_resident=True,
     )
     return elems.view(_util.torch_dtype(ct.dtype)).reshape(ct.shape)
 
@@ -489,6 +506,9 @@ def decompress_array(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device_resident: Optional[bool] = None,
     device: Any = "cuda",
 ) -> torch.Tensor:
@@ -499,7 +519,10 @@ def decompress_array(
     the layout allows (bf16/fp16/fp32); other leaves decode on the host
     and are copied over.  Bits are identical either way.
     """
-    opts = resolve_options(options, device_resident=device_resident)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend,
+        device_resident=device_resident,
+    )
     if opts.device_resident:
         dev = _util.resolve_device(device)
         out = _decompress_array_device(ct, config, opts, dev)
@@ -547,7 +570,7 @@ class ArrayFeed:
     def decode(self) -> torch.Tensor:
         """The restored leaf on the feed's device."""
         planes = self._feed.decode()
-        elems = device_unplane.consume_planes(planes, self._layout)
+        elems = device_unplane.consume_planes(planes, self._layout, device_resident=True)
         return elems.view(_util.torch_dtype(self.dtype)).reshape(self.shape)
 
 
@@ -611,6 +634,9 @@ def compress_pytree(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device: Any = "cuda",
 ) -> Dict[str, Any]:
     """Compress every leaf of a nested dict of tensors; returns a manifest.
@@ -621,7 +647,9 @@ def compress_pytree(
     (:func:`.device_plane.produce_planes_batched`); each leaf's blob is the
     one it would get alone, on either backend.
     """
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     leaves, treedef = _util.tree_flatten(tree)
     comp: List[Optional[CompressedTensor]] = [None] * len(leaves)
     for name, idxs in _device_groups(leaves, config, opts).items():
@@ -649,6 +677,9 @@ def decompress_pytree(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device_resident: Optional[bool] = None,
     device: Any = "cuda",
 ) -> Any:
@@ -663,7 +694,10 @@ def decompress_pytree(
     leaf is bit-identical to decoding it alone; the rest (other layouts,
     tails, empty leaves) decode one by one.
     """
-    opts = resolve_options(options, device_resident=device_resident)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend,
+        device_resident=device_resident,
+    )
     cts: List[CompressedTensor] = manifest["leaves"]
     arrays: List[Optional[torch.Tensor]] = [None] * len(cts)
     route = opts.replace(backend="device", entropy_backend="device") if opts.device_resident else opts
@@ -681,7 +715,8 @@ def decompress_pytree(
         acc = 0
 
         def flush():
-            elems = device_unplane.consume_planes_batched([p for _, p in window], layout)
+            elems = device_unplane.consume_planes_batched(
+                [p for _, p in window], layout, device_resident=True)
             for (i, _), el in zip(window, elems):
                 out = el.view(_util.torch_dtype(cts[i].dtype)).reshape(cts[i].shape)
                 arrays[i] = out if opts.device_resident else out.cpu()
@@ -719,6 +754,9 @@ def delta_compress(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device: Any = "cuda",
 ) -> CompressedTensor:
     """XOR-delta two same-shape tensors and compress the delta stream.
@@ -729,7 +767,9 @@ def delta_compress(
     the XOR is fused into K3 (the rotation is a bit permutation, so it
     commutes with XOR): the delta itself never exists, only its planes.
     """
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     if not _same_kind(new, base):
         raise ValueError("delta requires matching shape/dtype")
     name = _util.dtype_name(new.dtype)
@@ -751,6 +791,9 @@ def delta_compress_batched(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device: Any = "cuda",
 ) -> List[CompressedTensor]:
     """Delta-compress many ``(new, base)`` pairs; returns blobs in order.
@@ -759,7 +802,9 @@ def delta_compress_batched(
     with their bases; each blob equals :func:`delta_compress` of its pair
     alone, on either backend.
     """
-    opts = resolve_options(options)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend
+    )
     if len(news) != len(bases):
         raise ValueError("news and bases must pair 1:1")
     out: List[Optional[CompressedTensor]] = [None] * len(news)
@@ -787,6 +832,9 @@ def delta_decompress(
     config: ZipNNConfig = DEFAULT,
     *,
     options: Optional[CodecOptions] = None,
+    threads: Optional[int] = None,
+    backend: Optional[str] = None,
+    entropy_backend: Optional[str] = None,
     device_resident: Optional[bool] = None,
     device: Any = "cuda",
 ) -> torch.Tensor:
@@ -802,7 +850,10 @@ def delta_decompress(
     the device path cannot take decode on the host.  Bits are identical
     either way.
     """
-    opts = resolve_options(options, device_resident=device_resident)
+    opts = resolve_options(
+        options, threads=threads, backend=backend, entropy_backend=entropy_backend,
+        device_resident=device_resident,
+    )
     if tuple(ct.shape) != tuple(base.shape) or ct.dtype != _util.dtype_name(base.dtype):
         raise ValueError("delta requires matching shape/dtype")
     layout = bitlayout.LAYOUTS.get(ct.dtype)
@@ -816,7 +867,7 @@ def delta_decompress(
             b = base.detach().reshape(-1).view(ELEM_DTYPES[layout.itemsize])
             elems = device_unplane.consume_payloads(
                 meta.entries, payload_lists, meta.tables, params, layout,
-                base=b.to(dev), pool=_pool(config, opts), device=dev,
+                base=b.to(dev), pool=_pool(config, opts), device=dev, device_resident=True,
             )
             out = elems.view(_util.torch_dtype(ct.dtype)).reshape(ct.shape)
             return out if opts.device_resident else out.cpu()

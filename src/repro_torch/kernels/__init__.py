@@ -4,10 +4,13 @@ Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors, and counts its launches in a ``launches``
 attribute (kernel launches only; plain runs are not counted).  K1 has
 three launch forms, each counted on its own: ``huffdecode_chunks`` with a
-sync index (the serving ring's decode), ``huffdecode_serial`` and
-``huffdecode_index`` (the index pass).
+sync index (the serving ring's decode), ``huffdecode_serial`` (the
+self-synchronising decode, for one-shot decodes) and ``huffdecode_index``
+(the same kernel writing the index, a feed's build); ``huffdecode_chain``
+counts the one-thread-a-chunk baseline, which no path runs.
 :mod:`.ops` is the public face of K4–K6 and K8–K11, the counterpart of the
-reference's ``repro.kernels.ops``.
+reference's ``repro.kernels.ops``; its ``huffman_encode_chunks`` is
+exported here as the reference exports it.
 """
 
 from typing import Dict
@@ -37,16 +40,34 @@ from .histogram import (
     chunk_histogram_plain,
 )
 from .huffdecode import (
+    huffdecode_chain,
+    huffdecode_chain_plain,
     huffdecode_chunks,
     huffdecode_chunks_plain,
     huffdecode_index,
     huffdecode_index_plain,
+    huffdecode_selfsync_plain,
     huffdecode_serial,
 )
 from .xor_delta import xor_delta_u32, xor_delta_u32_plain, xor_elems, xor_elems_plain
+from . import fused_plane, fused_unplane, ops
+from .ops import huffman_encode_chunks
+
+# Names of the reference's ``repro.kernels.__all__`` the port has no
+# counterpart for: ``ref`` is the Pallas kernels' jnp oracle, whose role
+# each kernel's plain PyTorch version plays here.
+UNPORTED = ("ref",)
 
 __all__ = [
     "KERNELS",
+    "UNPORTED",
+    "fused_plane",
+    "fused_unplane",
+    "ops",
+    "huffman_encode_chunks",
+    "huffdecode_chain",
+    "huffdecode_chain_plain",
+    "huffdecode_selfsync_plain",
     "bitpack_encode_chunks",
     "bitpack_encode_chunks_plain",
     "bitpack_encode_chunks_single",
@@ -84,6 +105,7 @@ KERNELS = {
     "huffdecode_chunks": huffdecode_chunks,      # the sync decode (the ring's)
     "huffdecode_serial": huffdecode_serial,
     "huffdecode_index": huffdecode_index,
+    "huffdecode_chain": huffdecode_chain,        # the baseline; no path launches it
     "plane_consumer": plane_consumer,
     "plane_producer": plane_producer,
     "bitpack_encode_chunks": bitpack_encode_chunks,

@@ -4,16 +4,27 @@ Three launch forms of the CUDA kernels in ``csrc/huffdecode.cu``, each
 with its plain PyTorch version for CPU tensors (a wrapper raises on any
 other device; there is no fallback from a kernel to a plain version):
 
-* :func:`huffdecode_index` — the serial decode (one thread per chunk) that
-  also writes the **sync-point index**: the bit cursor before every
+* :func:`huffdecode_serial` — the decode with no index, for one-shot
+  decodes (restores, file frames, deltas, the KV tier's cold blocks): the
+  **self-synchronising** kernel, one block per chunk.  The chunk's bits are
+  cut into segments of ``seg_bits`` that start at guessed offsets; each
+  segment decodes to its end, segments restart from their predecessor's
+  end until nothing changes (the fixpoint is the serial decode's
+  partition), then a scan of the segments' symbol counts places each and
+  they decode again, in parallel, writing symbols.  What lies past a
+  chunk's words, or past a length-0 entry, is written in closed form;
+* :func:`huffdecode_index` — the same kernel asked for the **sync-point
+  index** (and, optionally, the symbols): the bit cursor before every
   ``sync_every``-th symbol of each chunk.  A resident payload feed runs it
-  once, at build;
+  once, at build, for the index and the cursors;
 * :func:`huffdecode_chunks` with ``sync`` — the decode the serving ring
   runs every step: the index cuts each chunk into ``ceil(count /
   sync_every)`` sub-streams decoded in parallel (one block per chunk, one
-  thread per sub-stream, LUT row and words in shared memory);
-* :func:`huffdecode_chunks` without ``sync`` (:func:`huffdecode_serial`)
-  — the serial decode alone, for one-shot decodes that have no index.
+  thread per sub-stream, LUT row and words in shared memory).
+
+:func:`huffdecode_chain` launches the first design, one thread walking a
+whole chunk; no path runs it, it is the baseline the measurements time
+beside the self-synchronising kernel.
 
 The blob format is untouched: the index lives beside the resident words,
 never in a ZNN1 stream.  Inputs (every tensor on one device, contiguous):
@@ -31,7 +42,8 @@ never in a ZNN1 stream.  Inputs (every tensor on one device, contiguous):
   (:func:`fuse_lut` builds a row; the reference kernel fuses
   ``(sym << 8) | len`` into int32, but ``len <= MAXL`` fits four bits, so
   a resident row here is half its size);
-* ``out``       uint8[N] — written in place at each chunk's offset;
+* ``out``       uint8[N] — written in place at each chunk's offset (the
+  index form may take None: no symbols written);
 * ``sync_off``  int64[C + 1] — chunk ``c``'s index entries are
   ``sync[sync_off[c] : sync_off[c + 1]]``, ``ceil(counts[c] /
   sync_every)`` of them (:func:`sync_offsets` builds it);
@@ -40,7 +52,8 @@ never in a ZNN1 stream.  Inputs (every tensor on one device, contiguous):
 
 Every form returns the final bit cursors, int32[C] (saturated at
 2^31 - 1); a valid chunk's cursor lands inside its payload's final byte,
-and a runaway one (corrupt payload) lands past it.
+and a runaway one (corrupt payload) lands past it.  Every form gives the
+same symbols, cursors and index on every input, valid or not.
 """
 
 from __future__ import annotations
@@ -55,15 +68,23 @@ import torch
 from . import _build
 
 __all__ = [
-    "MAXL", "SYNC_EVERY", "fuse_lut", "pack_words", "sync_offsets",
+    "MAXL", "SYNC_EVERY", "SEG_BITS", "fuse_lut", "pack_words", "sync_offsets",
     "huffdecode_chunks", "huffdecode_chunks_plain", "huffdecode_serial",
-    "huffdecode_index", "huffdecode_index_plain", "sync_word_cap",
+    "huffdecode_index", "huffdecode_index_plain", "huffdecode_chain",
+    "huffdecode_chain_plain", "huffdecode_selfsync_plain", "sync_word_cap",
 ]
 
 MAXL = 15                      # same cap as the encoder's length-limited tables
 # Symbols per sub-stream of the sync decode.  Its index costs 4 bytes per
 # SYNC_EVERY symbols: 0.57% of repro_gpt_100m's resident feeds at 512.
 SYNC_EVERY = 512
+# Bits per segment of the self-synchronising decode: a segment's symbols
+# are a chain of about SEG_BITS / 2.6 steps on a bf16 exponent plane.
+# Shorter segments make shorter chains and more of them; 544 bits (17
+# words, so a warp's segments start on distinct shared-memory banks) timed
+# fastest of 480 to 2,048 on an H100 at 3072x768 and 6144x24576 leaves
+# (kernels/k1_segment_sweep.py, chip_smoke.py's measure_k1).
+SEG_BITS = 544
 
 
 def fuse_lut(lut_sym: np.ndarray, lut_len: np.ndarray) -> np.ndarray:
@@ -112,7 +133,8 @@ def _check_args(words, word_off, plane_ids, counts, out_off, luts, out) -> int:
         ("out", out, torch.uint8, 1),
     )
     for name, t, dtype, ndim in want:
-        _check_tensor(name, t, dtype, ndim, dev)
+        if t is not None or name != "out":
+            _check_tensor(name, t, dtype, ndim, dev)
     c = plane_ids.numel()
     if counts.numel() != c or out_off.numel() != c or word_off.numel() != c + 1:
         raise ValueError("huffdecode: per-chunk arrays disagree on the chunk count")
@@ -146,13 +168,15 @@ def _check_sync(words, plane_ids, sync_off, sync, sync_every) -> None:
 @functools.cache
 def _lib():
     lib = _build.load("huffdecode")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.huffdecode_chunks_launch.argtypes = [p] * 6 + [i, i] + [p] * 4 + [i, p]
-    lib.huffdecode_chunks_launch.restype = i
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.huffdecode_chain_launch.argtypes = [p] * 6 + [i, i] + [p] * 4 + [i, p]
+    lib.huffdecode_chain_launch.restype = i
     lib.huffdecode_sync_launch.argtypes = [p] * 6 + [i, i, p, p, i, p, p, p]
     lib.huffdecode_sync_launch.restype = i
-    lib.huffdecode_sync_word_cap.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.huffdecode_sync_word_cap.argtypes = [i, ctypes.POINTER(ll)]
     lib.huffdecode_sync_word_cap.restype = i
+    lib.huffdecode_selfsync_launch.argtypes = [p] * 6 + [i, i, p, i, ll] + [p] * 5
+    lib.huffdecode_selfsync_launch.restype = i
     return lib
 
 
@@ -167,24 +191,50 @@ def sync_word_cap(lut_bits: int, device=None) -> int:
     return cap.value
 
 
-def _serial_launch(fn, words, word_off, plane_ids, counts, out_off, luts, out,
-                   lut_bits, sync_off=None, sync=None, sync_every=SYNC_EVERY):
-    """One launch of the serial kernel, counted on ``fn``."""
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_rounds(rounds, plane_ids) -> None:
+    if rounds is not None:
+        _check_tensor("rounds", rounds, torch.int32, 1, plane_ids.device)
+        if rounds.numel() != plane_ids.numel():
+            raise ValueError("huffdecode: rounds disagrees with the chunk count")
+
+
+def _selfsync(fn, words, word_off, plane_ids, counts, out_off, luts, out, sync_off,
+              sync_every, seg_bits, rounds):
+    """One checked launch of the self-synchronising kernel, counted on
+    ``fn``, or its plain version for CPU tensors; returns ``(cursors,
+    sync)`` (``sync`` None without ``sync_off``)."""
+    lut_bits = _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
+    if sync_off is not None:
+        _check_sync(words, plane_ids, sync_off, None, sync_every)
+    _check_rounds(rounds, plane_ids)
+    if seg_bits < 16:
+        raise ValueError(f"huffdecode: seg_bits must be >= 16, got {seg_bits}")
     dev = words.device
+    if dev.type == "cpu":
+        return huffdecode_selfsync_plain(words, word_off, plane_ids, counts, out_off, luts, out,
+                                         sync_off, sync_every, seg_bits, rounds)
     if dev.type != "cuda":
         raise ValueError(f"huffdecode: unsupported device {dev}")
+    if luts.data_ptr() % 4:
+        raise ValueError("huffdecode: luts must start on a 4-byte boundary")
+    sync = None
+    if sync_off is not None:
+        sync = torch.empty(int(sync_off[-1]), dtype=torch.int32, device=dev)
     cursors = torch.empty(plane_ids.numel(), dtype=torch.int32, device=dev)
-    rc = _lib().huffdecode_chunks_launch(
-        words.data_ptr(), word_off.data_ptr(), plane_ids.data_ptr(),
-        counts.data_ptr(), out_off.data_ptr(), luts.data_ptr(),
-        lut_bits, plane_ids.numel(), out.data_ptr(), cursors.data_ptr(),
-        None if sync_off is None else sync_off.data_ptr(),
-        None if sync is None else sync.data_ptr(), sync_every,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _lib().huffdecode_selfsync_launch(
+            words.data_ptr(), word_off.data_ptr(), plane_ids.data_ptr(), counts.data_ptr(),
+            out_off.data_ptr(), luts.data_ptr(), lut_bits, plane_ids.numel(),
+            _ptr(sync_off), sync_every, seg_bits, _ptr(out), cursors.data_ptr(), _ptr(sync),
+            _ptr(rounds), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check("huffdecode", rc, f"{fn.__name__} launch")
     _build.count_launch(fn)
-    return cursors
+    return cursors, sync
 
 
 def huffdecode_chunks(
@@ -203,9 +253,9 @@ def huffdecode_chunks(
 
     With ``sync`` and ``sync_off`` (an index from :func:`huffdecode_index`
     over the same words and counts at the same ``sync_every``) the chunks
-    decode as parallel sub-streams; without them, serially
-    (:func:`huffdecode_serial`).  Symbols and cursors are the same either
-    way on a valid stream.
+    decode as parallel sub-streams; without them, by the
+    self-synchronising decode (:func:`huffdecode_serial`).  Symbols and
+    cursors are the same either way.
 
     The caller guarantees the index arrays are in range (the feed builds
     them from a validated container): ``plane_ids < P``,
@@ -215,6 +265,8 @@ def huffdecode_chunks(
     """
     if (sync is None) != (sync_off is None):
         raise ValueError("huffdecode: pass sync and sync_off together")
+    if out is None:
+        raise ValueError("huffdecode: huffdecode_chunks needs out")
     if sync is None:
         return huffdecode_serial(words, word_off, plane_ids, counts, out_off, luts, out)
     lut_bits = _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
@@ -251,13 +303,20 @@ def huffdecode_serial(
     out_off: torch.Tensor,
     luts: torch.Tensor,
     out: torch.Tensor,
+    *,
+    seg_bits: int = SEG_BITS,
+    rounds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The serial decode without an index (one thread per chunk)."""
-    lut_bits = _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
-    if words.device.type == "cpu":
-        return huffdecode_chunks_plain(words, word_off, plane_ids, counts, out_off, luts, out)
-    return _serial_launch(huffdecode_serial, words, word_off, plane_ids, counts, out_off,
-                          luts, out, lut_bits)
+    """The decode without an index: the self-synchronising kernel writes
+    every chunk's symbols into ``out``; returns the final cursors.
+
+    ``seg_bits`` (>= 16) sets the segments' length; ``rounds`` (int32[C],
+    optional) receives each chunk's synchronisation rounds after the first
+    pass.  Neither changes a symbol or a cursor."""
+    if out is None:
+        raise ValueError("huffdecode: huffdecode_serial needs out")
+    return _selfsync(huffdecode_serial, words, word_off, plane_ids, counts, out_off, luts, out,
+                     None, SYNC_EVERY, seg_bits, rounds)[0]
 
 
 huffdecode_serial.launches = 0
@@ -270,27 +329,68 @@ def huffdecode_index(
     counts: torch.Tensor,
     out_off: torch.Tensor,
     luts: torch.Tensor,
-    out: torch.Tensor,
+    out: Optional[torch.Tensor],
     sync_off: torch.Tensor,
     sync_every: int = SYNC_EVERY,
+    *,
+    seg_bits: int = SEG_BITS,
+    rounds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The serial decode that also writes the sync index; returns
-    ``(cursors, sync)``.  ``sync`` is allocated here (``sync_off[-1]``
-    entries, read back to the host once)."""
-    lut_bits = _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
-    _check_sync(words, plane_ids, sync_off, None, sync_every)
-    if words.device.type == "cpu":
-        return huffdecode_index_plain(words, word_off, plane_ids, counts, out_off, luts, out,
-                                      sync_off, sync_every)
-    if words.device.type != "cuda":
-        raise ValueError(f"huffdecode: unsupported device {words.device}")
-    sync = torch.empty(int(sync_off[-1]), dtype=torch.int32, device=words.device)
-    cursors = _serial_launch(huffdecode_index, words, word_off, plane_ids, counts, out_off,
-                             luts, out, lut_bits, sync_off, sync, sync_every)
-    return cursors, sync
+    """The self-synchronising decode writing the sync index (and the
+    symbols into ``out`` unless it is None); returns ``(cursors, sync)``.
+    ``sync`` is allocated here (``sync_off[-1]`` entries, read back to the
+    host once).  ``seg_bits`` and ``rounds`` as in
+    :func:`huffdecode_serial`."""
+    return _selfsync(huffdecode_index, words, word_off, plane_ids, counts, out_off, luts, out,
+                     sync_off, sync_every, seg_bits, rounds)
 
 
 huffdecode_index.launches = 0
+
+
+def huffdecode_chain(
+    words: torch.Tensor,
+    word_off: torch.Tensor,
+    plane_ids: torch.Tensor,
+    counts: torch.Tensor,
+    out_off: torch.Tensor,
+    luts: torch.Tensor,
+    out: torch.Tensor,
+    sync_off: Optional[torch.Tensor] = None,
+    sync_every: int = SYNC_EVERY,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The first design, one thread walking each chunk: symbols into
+    ``out`` and, with ``sync_off``, the index; returns ``(cursors, sync)``.
+    No path of the package runs it: it is the baseline the measurements
+    time beside :func:`huffdecode_serial` and :func:`huffdecode_index`."""
+    lut_bits = _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
+    if out is None:
+        raise ValueError("huffdecode: huffdecode_chain needs out")
+    if sync_off is not None:
+        _check_sync(words, plane_ids, sync_off, None, sync_every)
+    dev = words.device
+    if dev.type == "cpu":
+        return huffdecode_chain_plain(words, word_off, plane_ids, counts, out_off, luts, out,
+                                      sync_off, sync_every)
+    if dev.type != "cuda":
+        raise ValueError(f"huffdecode: unsupported device {dev}")
+    sync = None
+    if sync_off is not None:
+        sync = torch.empty(int(sync_off[-1]), dtype=torch.int32, device=dev)
+    cursors = torch.empty(plane_ids.numel(), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().huffdecode_chain_launch(
+            words.data_ptr(), word_off.data_ptr(), plane_ids.data_ptr(), counts.data_ptr(),
+            out_off.data_ptr(), luts.data_ptr(), lut_bits, plane_ids.numel(), out.data_ptr(),
+            cursors.data_ptr(), _ptr(sync_off), _ptr(sync), sync_every,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check("huffdecode", rc, "huffdecode_chain launch")
+    _build.count_launch(huffdecode_chain)
+    return cursors, sync
+
+
+huffdecode_chain.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +488,147 @@ def _sync_plain(words, word_off, plane_ids, counts, out_off, luts, out,
     return torch.clamp(final, max=2**31 - 1).to(torch.int32)
 
 
+def _sat(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, max=2**31 - 1).to(torch.int32)
+
+
+def _segmented_exclusive(x: torch.Tensor, first: torch.Tensor, group: torch.Tensor):
+    """Exclusive sum of ``x`` within each group of consecutive lanes
+    (``group`` each lane's group, ``first`` each group's first lane)."""
+    excl = torch.cumsum(x, 0) - x
+    if not excl.numel():
+        return excl
+    return excl - excl[first.clamp(max=excl.numel() - 1)][group]
+
+
+def huffdecode_selfsync_plain(
+    words: torch.Tensor,
+    word_off: torch.Tensor,
+    plane_ids: torch.Tensor,
+    counts: torch.Tensor,
+    out_off: torch.Tensor,
+    luts: torch.Tensor,
+    out: Optional[torch.Tensor],
+    sync_off: Optional[torch.Tensor] = None,
+    sync_every: int = SYNC_EVERY,
+    seg_bits: int = SEG_BITS,
+    rounds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch self-synchronising decode, the kernel's algorithm with
+    every segment of every chunk a lane in lockstep: each segment walks
+    from a guessed start to its end; segments restart from their
+    predecessor's end (``rounds`` gets each chunk's rounds) until nothing
+    changes; ``torch.cumsum`` of the counts places them; they decode again,
+    writing symbols into ``out`` (unless None) and the index at
+    ``sync_off`` (when given); past the words or a stall the constant tail
+    is written in closed form.  Returns ``(cursors, sync)``."""
+    _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
+    dev = words.device
+    c = plane_ids.numel()
+    w, start, nw, row, lut, shift = _lanes(words, word_off, plane_ids, luts)
+    cnt = counts.to(torch.int64)
+    bits = 32 * nw
+    nseg = (bits + seg_bits - 1) // seg_bits
+    chunk = torch.repeat_interleave(torch.arange(c, device=dev), nseg)
+    first_seg = torch.cumsum(nseg, 0) - nseg
+    k = torch.arange(chunk.numel(), device=dev) - first_seg[chunk]
+    lo = k * seg_bits
+    hi = torch.minimum(lo + seg_bits, bits[chunk])
+    s, n, r = start[chunk], nw[chunk], row[chunk]
+
+    def walk(ids, pos):
+        """Lanes ``ids`` from ``pos`` to their ends: (cursor, count, stalled)."""
+        pos = pos.clone()
+        steps = torch.zeros_like(pos)
+        stalled = torch.zeros(pos.numel(), dtype=torch.bool, device=dev)
+        live = torch.nonzero(pos < hi[ids]).squeeze(1)
+        while live.numel():
+            j = ids[live]
+            _, length = _step(w, s[j], n[j], r[j], lut, shift, pos[live])
+            stop = length == 0
+            stalled[live[stop]] = True
+            go = live[~stop]
+            pos[go] += length[~stop]
+            steps[go] += 1
+            live = go[pos[go] < hi[ids[go]]]
+        return pos, steps, stalled
+
+    # phase 1: walk from the guesses, then restart until nothing changes
+    lanes = torch.arange(chunk.numel(), device=dev)
+    st = lo.clone()
+    end, seg_n, stalled = walk(lanes, st)
+    n_rounds = torch.zeros(c, dtype=torch.int64, device=dev)
+    prev = (lanes - 1).clamp(min=0)
+    for _ in range(int(nseg.max()) if c else 0):       # the fixpoint takes < nseg rounds
+        want = torch.where((k > 0) & ~stalled[prev], end[prev], st)
+        moved = torch.nonzero(want != st).squeeze(1)
+        if not moved.numel():
+            break
+        st[moved] = want[moved]
+        end[moved], seg_n[moved], stalled[moved] = walk(moved, st[moved])
+        n_rounds[torch.unique(chunk[moved])] += 1
+    if rounds is not None:
+        rounds.copy_(n_rounds.to(torch.int32))
+
+    # phase 2: segments before a chunk's first stall, placed by a scan
+    reach = _segmented_exclusive(stalled.to(torch.int64), first_seg, chunk) == 0
+    seg_n = torch.where(reach, seg_n, 0)
+    first = _segmented_exclusive(seg_n, first_seg, chunk)
+    tail_first = torch.zeros(c, dtype=torch.int64, device=dev).index_add_(0, chunk, seg_n)
+    # the tail starts at the stall, else where the last segment ends
+    tail_pos = torch.zeros(c, dtype=torch.int64, device=dev)
+    has = nseg > 0
+    tail_pos[has] = end[(first_seg + nseg - 1)[has]]
+    stop = reach & stalled
+    tail_pos[chunk[stop]] = end[stop]
+    sym_t, len_t = _step(w, start, nw, row, lut, shift, tail_pos)
+
+    sync = None
+    if sync_off is not None:
+        sync = torch.zeros(int(sync_off[-1]), dtype=torch.int32, device=dev)
+    final = torch.zeros(c, dtype=torch.int64, device=dev)
+    todo = torch.clamp(torch.minimum(seg_n, cnt[chunk] - first), min=0)
+    live = torch.nonzero(todo > 0).squeeze(1)
+    pos = st[live]
+    t = 0
+    while live.numel():
+        j = chunk[live]
+        i = first[live] + t
+        sym, length = _step(w, s[live], n[live], r[live], lut, shift, pos)
+        if out is not None:
+            out[out_off[j] + i] = sym
+        if sync is not None:
+            at = i % sync_every == 0
+            sync[sync_off[j[at]] + i[at] // sync_every] = _sat(pos[at])
+        pos = pos + length
+        last = i + 1 == cnt[j]
+        final[j[last]] = pos[last]
+        t += 1
+        keep = todo[live] > t
+        live, pos = live[keep], pos[keep]
+
+    # the closed-form tail, symbols tail_first .. count-1
+    extra = torch.clamp(cnt - tail_first, min=0)
+    tail = torch.nonzero(extra).squeeze(1)
+    final[tail] = tail_pos[tail] + extra[tail] * len_t[tail]
+    if out is not None and tail.numel():
+        m = extra[tail]
+        which = torch.repeat_interleave(tail, m)
+        idx = torch.arange(int(m.sum()), device=dev) - torch.repeat_interleave(
+            torch.cumsum(m, 0) - m, m)
+        out[out_off[which] + tail_first[which] + idx] = sym_t[which]
+    if sync is not None and tail.numel():
+        q0 = (tail_first[tail] + sync_every - 1) // sync_every
+        q1 = (cnt[tail] + sync_every - 1) // sync_every
+        m = torch.clamp(q1 - q0, min=0)
+        which = torch.repeat_interleave(tail, m)
+        q = torch.arange(int(m.sum()), device=dev) - torch.repeat_interleave(
+            torch.cumsum(m, 0) - m, m) + torch.repeat_interleave(q0, m)
+        sync[sync_off[which] + q] = _sat(
+            tail_pos[which] + (q * sync_every - tail_first[which]) * len_t[which])
+    return _sat(final), sync
+
+
 def huffdecode_chunks_plain(
     words: torch.Tensor,
     word_off: torch.Tensor,
@@ -400,15 +641,16 @@ def huffdecode_chunks_plain(
     sync_off: Optional[torch.Tensor] = None,
     sync_every: int = SYNC_EVERY,
 ) -> torch.Tensor:
-    """Plain PyTorch K1 decode.  Without an index: one symbol of every live
-    chunk per step, serial within a chunk.  With ``sync``/``sync_off``:
+    """Plain PyTorch K1 decode.  Without an index: the self-synchronising
+    decode (:func:`huffdecode_selfsync_plain`).  With ``sync``/``sync_off``:
     every sub-stream of every chunk in lockstep for ``sync_every`` steps,
     as the sync kernel cuts them."""
     _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
     if (sync is None) != (sync_off is None):
         raise ValueError("huffdecode: pass sync and sync_off together")
     if sync is None:
-        return _serial_plain(words, word_off, plane_ids, counts, out_off, luts, out)[0]
+        return huffdecode_selfsync_plain(words, word_off, plane_ids, counts, out_off, luts,
+                                         out)[0]
     _check_sync(words, plane_ids, sync_off, sync, sync_every)
     return _sync_plain(words, word_off, plane_ids, counts, out_off, luts, out,
                        sync, sync_off, sync_every)
@@ -421,13 +663,33 @@ def huffdecode_index_plain(
     counts: torch.Tensor,
     out_off: torch.Tensor,
     luts: torch.Tensor,
-    out: torch.Tensor,
+    out: Optional[torch.Tensor],
     sync_off: torch.Tensor,
     sync_every: int = SYNC_EVERY,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch index pass: the serial decode, recording each live
-    chunk's cursor at every multiple of ``sync_every``."""
-    _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
+    """Plain PyTorch index form: the self-synchronising decode writing the
+    index (and the symbols unless ``out`` is None)."""
     _check_sync(words, plane_ids, sync_off, None, sync_every)
+    return huffdecode_selfsync_plain(words, word_off, plane_ids, counts, out_off, luts, out,
+                                     sync_off, sync_every)
+
+
+def huffdecode_chain_plain(
+    words: torch.Tensor,
+    word_off: torch.Tensor,
+    plane_ids: torch.Tensor,
+    counts: torch.Tensor,
+    out_off: torch.Tensor,
+    luts: torch.Tensor,
+    out: torch.Tensor,
+    sync_off: Optional[torch.Tensor] = None,
+    sync_every: int = SYNC_EVERY,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch chain: one symbol of every live chunk a step, serial
+    within a chunk, recording each chunk's cursor at every multiple of
+    ``sync_every`` when ``sync_off`` is given."""
+    _check_args(words, word_off, plane_ids, counts, out_off, luts, out)
+    if sync_off is not None:
+        _check_sync(words, plane_ids, sync_off, None, sync_every)
     return _serial_plain(words, word_off, plane_ids, counts, out_off, luts, out,
                          sync_off, sync_every)

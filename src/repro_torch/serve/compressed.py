@@ -54,12 +54,17 @@ class CompressedParamStore:
         config: Optional[zipnn.ZipNNConfig] = None,
         *,
         options: Optional[CodecOptions] = None,
+        threads: Optional[int] = None,
+        backend: Optional[str] = None,
+        entropy_backend: Optional[str] = None,
         payload_feed: bool = False,
         device: Any = "cuda",
     ) -> None:
         self.device = _util.resolve_device(device)
         self._config = zipnn.DEFAULT if config is None else config
-        self._options = resolve_options(options)
+        self._options = resolve_options(
+            options, threads=threads, backend=backend, entropy_backend=entropy_backend
+        )
         self.payload_feed = payload_feed
         self.static: Dict[str, PyTree] = {}
         self._stacks: Dict[str, List[Dict[str, Any]]] = {}
@@ -79,6 +84,9 @@ class CompressedParamStore:
         config: Optional[zipnn.ZipNNConfig] = None,
         *,
         options: Optional[CodecOptions] = None,
+        threads: Optional[int] = None,
+        backend: Optional[str] = None,
+        entropy_backend: Optional[str] = None,
         payload_feed: bool = False,
         device: Any = "cuda",
     ) -> "CompressedParamStore":
@@ -95,7 +103,10 @@ class CompressedParamStore:
         """
         if not isinstance(params, Mapping):
             raise ValueError("from_params expects the model's top-level param dict")
-        store = cls(config, options=options, payload_feed=payload_feed, device=device)
+        opts = resolve_options(
+            options, threads=threads, backend=backend, entropy_backend=entropy_backend
+        )
+        store = cls(config, options=opts, payload_feed=payload_feed, device=device)
         for key, sub in params.items():
             if key not in DEFAULT_STACK_KEYS:
                 store.static[key] = _util.tree_map(lambda a: a.to(store.device), sub)

@@ -40,10 +40,12 @@ from repro_torch.kernels import (
     bytegroup_fp32_plain,
     chunk_histogram,
     chunk_histogram_plain,
+    huffdecode_chain,
     huffdecode_chunks,
     huffdecode_chunks_plain,
     huffdecode_index,
     huffdecode_index_plain,
+    huffdecode_selfsync_plain,
     huffdecode_serial,
     launch_counts,
     plane_consumer,
@@ -64,7 +66,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import bitpack as bitpack_mod
 from repro_torch.kernels import histogram as histogram_mod
 from repro_torch.kernels import ops
-from repro_torch.kernels.huffdecode import fuse_lut, pack_words, sync_offsets, sync_word_cap
+from repro_torch.kernels.huffdecode import (
+    SEG_BITS, fuse_lut, pack_words, sync_offsets, sync_word_cap,
+)
 from repro_torch.models import decode_step, init_decode_state
 from repro_torch.models.model import param_shapes
 from repro_torch.serve import CompressedParamStore, make_compressed_serve_step
@@ -91,7 +95,8 @@ def test_k1_kernel_matches_plain(cuda):
     ct = zipnn.compress_array(leaf, HUFF)
     reset_launch_counts()
     feed = zipnn.build_array_feed(ct, HUFF, device=cuda)
-    assert launch_counts()["huffdecode_index"] == 1          # the feed's warmup
+    assert launch_counts()["huffdecode_index"] == 1          # the feed's index pass
+    assert launch_counts()["huffdecode_serial"] == launch_counts()["huffdecode_chain"] == 0
     args = feed.launch_args()
     n = args.pop("out_bytes")
     out_k, out_p, out_s = (torch.zeros(n, dtype=torch.uint8, device=cuda) for _ in range(3))
@@ -103,12 +108,15 @@ def test_k1_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert launch_counts()["huffdecode_chunks"] == 1
     assert launch_counts()["huffdecode_serial"] == 1
+    assert launch_counts()["huffdecode_chain"] == 0
     assert torch.equal(cur_k, cur_p) and torch.equal(out_k, out_p)
     assert torch.equal(cur_k, cur_s) and torch.equal(out_k, out_s)
     cur_i, sync_i = huffdecode_index(**args, out=out_s, sync_off=sync_off)
     cur_ip, sync_ip = huffdecode_index_plain(**args, out=out_p, sync_off=sync_off)
-    assert torch.equal(sync_i, sync) and torch.equal(sync_ip, sync)
-    assert torch.equal(cur_i, cur_k) and torch.equal(cur_ip, cur_k)
+    cur_c, sync_c = huffdecode_chain(**args, out=out_p, sync_off=sync_off)
+    assert torch.equal(sync_i, sync) and torch.equal(sync_ip, sync) and torch.equal(sync_c, sync)
+    assert torch.equal(cur_i, cur_k) and torch.equal(cur_ip, cur_k) and torch.equal(cur_c, cur_k)
+    assert torch.equal(out_p, out_k)
     assert torch.equal(feed.decode().cpu().view(torch.int16), leaf.view(torch.int16))
 
 
@@ -178,7 +186,8 @@ def test_k1_sync_decode_staged_and_global_words(cuda, chunk, pad, top, sync_ever
     cur_s = huffdecode_serial(*args, out_s)
     torch.cuda.synchronize()
     assert {k: v for k, v in launch_counts().items() if k.startswith("huff")} == {
-        "huffdecode_chunks": 1, "huffdecode_serial": 1, "huffdecode_index": 1}
+        "huffdecode_chunks": 1, "huffdecode_serial": 1, "huffdecode_index": 1,
+        "huffdecode_chain": 0}
     for out in (out_i, out_p, out_s):
         assert torch.equal(out_k, out)
     for cur in (cur_i, cur_p, cur_s):
@@ -186,6 +195,83 @@ def test_k1_sync_decode_staged_and_global_words(cuda, chunk, pad, top, sync_ever
     got = np.concatenate([out_k[o : o + c].cpu().numpy() for o, c in zip(out_off, counts)])
     assert np.array_equal(got, syms)
     assert all(0 <= len(p) * 8 - c < 8 for p, c in zip(payloads, cur_k.tolist()))
+
+
+def _selfsync_inputs(kind):
+    """CPU inputs (words, word_off, pids, counts, out_off, luts) for the
+    self-synchronising decode, by kind: a valid stream, its payloads
+    truncated or extended with random bytes, an incomplete code (length-0
+    LUT entries), counts zero and above the words, a code whose lengths
+    are all 3 or 6 (no resynchronisation, a round a segment), a chunk whose
+    words a block cannot stage, and random words under random LUT rows."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "shared_factor":
+        lens = np.zeros(256, np.int64)
+        lens[:7], lens[7:15] = 3, 6
+        codes = huffman.canonical_codes(lens)
+        plane = rng.integers(0, 15, 2 * 20_000).astype(np.uint8)
+        cnt = np.asarray([20_000, 20_000])              # ~1,400 segments of 64 bits a chunk
+        payloads = huffman.encode_chunks(plane, cnt, lens, codes)
+        luts = fuse_lut(*huffman._build_lut(lens, codes, 6))[None]
+        pids, counts = np.zeros(2, np.int32), cnt.astype(np.int32)
+    else:
+        chunk = 1 << 18 if kind == "global_words" else 1 << 17
+        top = 0.02 if kind == "global_words" else 0.05
+        words, word_off, pids, counts, out_off, luts, _, _, payloads = _k1_case(
+            chunk, 3, 7, 0, top)
+        if kind == "truncated":
+            payloads = [p[: len(p) // 2] for p in payloads]
+        elif kind == "extended":
+            payloads = [p + rng.integers(0, 256, 37, dtype=np.uint8).tobytes() for p in payloads]
+        elif kind == "incomplete":
+            luts = luts.copy()
+            luts[:, 3::11] &= ~0xF
+        elif kind == "counts":
+            counts = np.asarray([0, counts[1] * 3 + 5, counts[2] // 2, 2], np.int32)
+        elif kind == "random":
+            payloads = [rng.integers(0, 256, len(p), dtype=np.uint8).tobytes() for p in payloads]
+            luts = rng.integers(-(1 << 15), 1 << 15, luts.shape).astype(np.int16)
+    words, word_off = pack_words(payloads)
+    out_off = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64) + 3
+    return words, word_off, pids, counts, out_off, luts
+
+
+@pytest.mark.parametrize("seg_bits", [SEG_BITS, 64])
+@pytest.mark.parametrize("kind", ["valid", "truncated", "extended", "incomplete", "counts",
+                                  "shared_factor", "global_words", "random"])
+def test_k1_selfsync_matches_plain_and_chain(cuda, kind, seg_bits):
+    """The self-synchronising kernel (both forms: symbols, and index without
+    symbols) against its plain version and the chain kernel, bit for bit,
+    on valid, truncated, extended, incomplete-code and random inputs; at
+    64-bit segments the 131,072-symbol chunks have more segments than a
+    block has threads, and more than the state it keeps (it lengthens
+    them)."""
+    arrays = _selfsync_inputs(kind)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    counts = arrays[3]
+    n = int(arrays[4][-1] + counts[-1]) + 5
+    every = 300
+    sync_off = torch.from_numpy(sync_offsets(counts, every)).to(cuda)
+    out_s, out_c, out_p = (torch.zeros(n, dtype=torch.uint8, device=cuda) for _ in range(3))
+    rounds = torch.full((counts.size,), -1, dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    cur_s = huffdecode_serial(*args, out_s, seg_bits=seg_bits, rounds=rounds)
+    cur_i, sync_i = huffdecode_index(*args, None, sync_off, every, seg_bits=seg_bits)
+    cur_c, sync_c = huffdecode_chain(*args, out_c, sync_off, every)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if k.startswith("huff")} == {
+        "huffdecode_chunks": 0, "huffdecode_serial": 1, "huffdecode_index": 1,
+        "huffdecode_chain": 1}
+    cur_p, sync_p = huffdecode_selfsync_plain(*args, out_p, sync_off, every, seg_bits)
+    assert torch.equal(out_s, out_c) and torch.equal(out_p, out_c)
+    assert torch.equal(cur_s, cur_c) and torch.equal(cur_i, cur_c) and torch.equal(cur_p, cur_c)
+    assert torch.equal(sync_i, sync_c) and torch.equal(sync_p, sync_c)
+    assert bool((rounds >= 0).all())
+    if kind == "shared_factor":                      # segment starts off the grid of 3
+        assert int(rounds.max()) > 2                 # the fixpoint took many rounds
+    if kind == "global_words":
+        cap = sync_word_cap(arrays[5].shape[1].bit_length() - 1, cuda)
+        assert max(np.diff(arrays[1])) > cap         # a block read its words from global memory
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -272,6 +358,7 @@ def test_ring_bit_identical_on_card(cuda):
     assert launch_counts()["huffdecode_chunks"] == 4 * sum(
         f.n_launches["huffdecode_chunks"] for l in store.feeds("layers") for f in l) > 0
     assert launch_counts()["huffdecode_serial"] == launch_counts()["huffdecode_index"] == 0
+    assert launch_counts()["huffdecode_chain"] == 0
     assert launch_counts()["plane_consumer"] == 4 * n_feeds
     assert device_entropy.transfer_stats()["payload_uploads"] == 0
     assert store.peak_resident <= 2
@@ -770,7 +857,8 @@ def test_decompress_bytes_decodes_on_the_card_by_default(cuda):
     assert blob == zipnn.compress_bytes(raw, "bfloat16", cfg, options=HOST)
     reset_launch_counts()
     assert zipnn.decompress_bytes(blob, cfg) == raw          # no backend: "auto"
-    assert launch_counts()["huffdecode_serial"] == 1
+    assert launch_counts()["huffdecode_serial"] == 1         # the self-synchronising decode
+    assert launch_counts()["huffdecode_chain"] == 0
     assert launch_counts()["plane_consumer"] == 1
     reset_launch_counts()
     assert zipnn.decompress_bytes(blob, cfg, options=HOST) == raw
@@ -799,6 +887,7 @@ def test_file_on_card_equals_host_file(cuda, tmp_path, threads, depth):
                                options=CodecOptions(threads=threads), pipeline_depth=depth)
     assert n == len(raw) and out.getvalue() == raw
     assert launch_counts()["huffdecode_serial"] == launch_counts()["plane_consumer"] == frames
+    assert launch_counts()["huffdecode_chain"] == 0
 
 
 def test_file_on_card_by_default(cuda, tmp_path):
@@ -878,6 +967,7 @@ def test_checkpoint_on_card_equals_host_and_restores_on_card(cuda, tmp_path):
     step, tree = card.restore(2, device_resident=True)
     assert step == 2
     assert launch_counts()["huffdecode_serial"] > 0 and launch_counts()["plane_consumer"] > 0
+    assert launch_counts()["huffdecode_chain"] == 0
     got, ref = _util.tree_flatten_with_keys(tree), _util.tree_flatten_with_keys(want)
     assert [k for k, _ in got] == [k for k, _ in ref]
     for (k, a), (_, b) in zip(got, ref):
@@ -958,6 +1048,7 @@ def test_full_width_leaf_k7_k1_on_card(cuda):
     assert ct.blob == host.blob
     feed = zipnn.build_array_feed(ct, cfg, device=cuda)
     assert launch_counts()["huffdecode_index"] == 1
+    assert launch_counts()["huffdecode_chain"] == 0
     assert torch.equal(feed.decode().view(torch.int16), leaf.view(torch.int16))
     args = feed.launch_args()
     n_out = args.pop("out_bytes")
@@ -1062,6 +1153,7 @@ def test_tiered_ring_on_card(cuda):
     assert kv.n_cold_blocks == (steps - 3) // 2
     assert counts["plane_producer"] == 2 * cfg.n_layers * kv.n_cold_blocks
     assert counts["huffdecode_serial"] > 0 and counts["plane_consumer"] > 0
+    assert counts["huffdecode_chain"] == 0
     assert store.peak_resident <= 2 * 2
     for key in kv.keys:
         for j in range(cfg.n_layers):
@@ -1141,6 +1233,7 @@ def test_moe_ring_on_card_with_the_f32_router(cuda, name):
         assert counts["plane_consumer"] == steps * sum(
             f.n_launches["plane_consumer"] for f in feeds)
         assert counts["huffdecode_serial"] == counts["huffdecode_index"] == 0
+        assert counts["huffdecode_chain"] == 0
 
 
 def test_mla_kv_tier_on_card(cuda):
