@@ -85,7 +85,17 @@ without printing the final line:
     right after each save returns), then ``restore(device_resident=True)``
     must equal the last state bit for bit; the same saves of layers 0-1
     of the stacks and their moments on the card and on the host must write
-    equal bytes;
+    equal bytes.  The main path of the forward pass: ``make_prefill`` over
+    the params that restore just made on the card (K1's one-shot decode and
+    K2 counted from before the restore to after the prefill), held at B=4,
+    S=128 against the plain decode loop's logits of the same prompt, both
+    on those params with the reference's norms (gains 1): the largest gap
+    under 5e-2 of the largest logit (MoE 1e-1, the hybrid 3e-1; the
+    reference's ``atol = rtol = 8e-2`` a reading), with a control (one
+    block's output zeroed) that must fail the same comparison, then
+    timed at B=4 x S=2,048 (tokens/s, peak card memory) and profiled (device
+    time in matmuls, the flash loop, the SSD scan, the MoE dispatch and
+    combine, the rest; the card's idle share);
 13. granite_20b at its published widths (d_model 6144, 48 heads of 128,
     one KV head, d_ff 24576, vocab 49,152, 32,768 learned positions,
     layernorm, GELU, QKV bias), cut in depth to 4 of its 52 layers, random
@@ -106,7 +116,8 @@ without printing the final line:
     in the reassembly equal to the block plan); then K1 (sync decode, index
     pass, one-shot decode), K2, K3 and K7 at the 6144x24576 ``w_in`` leaf
     against their plain versions and their bounds (K1's index pass and
-    one-shot decode beside the chain baseline);
+    one-shot decode beside the chain baseline); prefill held at B=1,
+    S=1,088 (past the 1,024 kv block, padded) and timed at B=4 x 2,048;
 14. olmoe_1b_7b whole at its published size (16 layers, d_model 2048, 16
     heads of 128, 64 experts of 2048x1024, top-8, vocab 50,304, routers
     f32; 13,842,386,944 B): the same store checks (layer 0's 10 blobs
@@ -114,7 +125,10 @@ without printing the final line:
     leaf is exactly K3's 256 MiB batch cap and K7's 1,024-chunk cap, so the
     plans test both edges), the ring at ``tiles`` 1 and 4 against the
     plain step with traces, and K1/K2/K3/K7 at an expert leaf and at a
-    router leaf (f32: K2's and K3's 4-byte paths);
+    router leaf (f32: K2's and K3's 4-byte paths); prefill held at B=4,
+    S=64 at a capacity factor where nothing drops (at the config's 1.25
+    each side drops other pairs: a reading with the drops, not held) and
+    timed at B=4 x 2,048;
 15. deepseek_v2_236b at its published widths (d_model 5120, 128 heads, MLA
     with a 512-wide latent and 64-wide rope key, 160 routed experts of
     5120x1536 top-6 and 2 shared, vocab 102,400), cut in depth to 2 of its
@@ -127,7 +141,9 @@ without printing the final line:
     greedy tokens (latent blocks of (4, 64, 512) and (4, 64, 64)); K1's sync
     decode at the expert leaf against its plain version over all 9,600
     chunks, and K2/K3/K7 there (against their plain versions over the first
-    1,024 chunks) and at the router;
+    1,024 chunks) and at the router; prefill (MLA's 192/128 head) held at
+    B=2, S=64 as olmoe's, with the mean gap under 5e-2 too, and timed at
+    B=2 x 1,024;
 16. mamba2_130m whole at its published size (24 layers, d_model 768,
     d_inner 1536, 24 SSM heads of 64, state 128, vocab 50,280, untied
     head; 335,200,512 B): the store built on the card against the host's
@@ -137,6 +153,8 @@ without printing the final line:
     ``ssm_state`` / ``ssm_conv`` bit-identical) with traces
     ``build/mamba2_ring_trace_t{1,4}.json``, K1/K2/K3/K7 at the 768x3352
     ``in_proj`` leaf (20 exponent chunks) and K2's fp32 path at ``A_log``;
+    prefill held at B=1, S=200 (two SSD chunks, padded) and timed at B=4 x
+    2,048;
 17. zamba2_7b whole at its published size (81 Mamba2 layers as 13 groups of
     6 and a 3-layer tail, the shared attention block; 13,502,316,096 B),
     served from a ZipNN checkpoint restored on the card: the plain
@@ -149,10 +167,16 @@ without printing the final line:
     DIR`` (through ``main``) restores on the card (K1's one-shot decode,
     K2): every restored leaf equals the saved one bit for bit and the
     tokens equal the plain step's; K1/K2/K3/K7 at the 8.15 GB leaf; about
-    9 GB under ``build/chip_zamba2_ckpt``, removed at the end;
+    9 GB under ``build/chip_zamba2_ckpt``, removed at the end.  Before the
+    checkpoint, prefill of the phase's prompt held against the plain
+    ``greedy_generate`` logits, timed at B=1 x 8,192 (past the shared
+    block's 4,096 window), and its first 4,096 positions held against the
+    prefill of those alone (the control's prefix must fail).  Every prefill
+    hold runs on the params with the reference's norms, as phase 12's;
 18. report: store sizes, build times, tokens/s, file and checkpoint times,
-    each phase's seconds and peak card memory, the ``kernels`` JSON line,
-    and last ``{"ok": true, "device": {...}}``.
+    each phase's seconds and peak card memory, a prefill summary line, the
+    ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+    Each prefill's profiler trace goes to ``build/<label>_prefill_trace.json``.
 """
 
 from __future__ import annotations
@@ -1300,6 +1324,7 @@ def phase_checkpoint(dev, zcfg, params):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import _util
+    from repro_torch.configs import get_config
     from repro_torch.core import zipnn
     from repro_torch.kernels import reset_launch_counts
 
@@ -1344,6 +1369,14 @@ def phase_checkpoint(dev, zcfg, params):
             torch.cuda.synchronize()
             t_restore = time.perf_counter() - t0
         restore_launches = _path_launches()
+        # this slice's main path: prefill from the params just restored
+        # on the card (K1's one-shot decode and K2 made them)
+        prefill, prefill_peak = run_prefill(dev, get_config("repro_gpt_100m"), tree["params"],
+                                            "repro_gpt_100m", SEED + 23)
+        prefill_launches = _path_launches()
+        if prefill_launches != restore_launches:
+            raise AssertionError(f"the prefill launched codec kernels: {restore_launches} -> "
+                                 f"{prefill_launches}")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             mgr.restore(device_resident=True)
             torch.cuda.synchronize()
@@ -1397,7 +1430,9 @@ def phase_checkpoint(dev, zcfg, params):
         f"{[round(b, 4) for _, b in host_t]}")
     return {"save_launches": save_launches, "restore_launches": restore_launches,
             "save_s": times, "restore_s": t_restore, "held_bytes": held,
-            "save_device_ms": save_device, "restore_device_ms": restore_device}
+            "save_device_ms": save_device, "restore_device_ms": restore_device,
+            "prefill": prefill, "prefill_launches": prefill_launches,
+            "peak_card_bytes": max(prefill_peak, torch.cuda.max_memory_allocated(dev))}
 
 
 def ops_inputs(dev):
@@ -1957,6 +1992,415 @@ DEEPSEEK_LAYERS = 2              # deepseek_v2_236b cut in depth from 60: its de
 DS_PLAIN_PREFIX = 1 << 27        # elements of deepseek's expert leaf held against plain K3/K7/K2
 
 
+# Prefill: the reference's decode-vs-forward limit (tests/test_models.py),
+# a reading, and its MLA rule's mean gap under 5e-2, held (its equal argmax
+# is printed: see ``hold_prefill``)
+PREFILL_ATOL = PREFILL_RTOL = 8e-2
+PREFILL_MLA_MEAN = 5e-2
+# Every hold runs on params whose norms are the reference's
+# (``reference_norms``; on ``init_params``' 0.02 gains no block shows in
+# the logits) and holds the largest gap under PREFILL_REL_LIMIT of the
+# largest logit, set per family between the sound prefills' largest reading
+# and the control's smallest (``CONTROL_LEAF``), which must go over it;
+# each hold prints both (PERF.md, section 6, keeps the readings).  The
+# hybrid's is the widest: zamba2's 81 layers at gains 1 carry every
+# rounding difference up to the logits, so that two prefills of one prefix
+# whose products differ only in shape differ by several 1e-2.  MoE's is the
+# next: a near-tie in a router picks another expert on one side, and that
+# position then moves by several 1e-2 of the largest logit.  The
+# reference's rule is a reading: its 8e-2 is absolute, set for logits of
+# about 1, and at gains 1 and full width the largest logits reach 3-9, so
+# rounding alone takes a small logit past it.
+PREFILL_REL_LIMIT = {"dense": 5e-2, "ssm": 5e-2, "moe": 1e-1, "hybrid": 3e-1}
+# the control: the first layer's (hybrid: group 0's first layer's) mixer
+# output projection zeroed, so that one block's output is lost
+CONTROL_LEAF = {"dense": (("layers", "attn", "wo", "w"), (0,)),
+                "moe": (("moe_layers", "moe", "experts", "w_down"), (0,)),
+                "ssm": (("layers", "mamba", "out_proj", "w"), (0,)),
+                "hybrid": (("mamba_groups", "mamba", "out_proj", "w"), (0, 0))}
+# (hold B, hold S, timed B, timed S) per phase: each timed S crosses q_block
+# 512 and kv_block 1,024 (zamba2's also the shared block's 4,096 window)
+PREFILL_SHAPES = {
+    "repro_gpt_100m": (4, 128, 4, 2048),
+    "granite": (1, 1088, 4, 2048),           # 1,088 > kv_block, not a multiple of 512
+    "olmoe": (4, 64, 4, 2048),
+    "deepseek": (2, 64, 2, 1024),
+    "mamba2": (1, 200, 4, 2048),             # 200: two SSD chunks of 128, padded
+    "zamba2": (BATCH, PROMPT, 1, 8192),
+}
+PREFILL_KINDS = ("matmuls", "attention", "ssd_scan", "moe_dispatch", "rest")
+GEMM_KERNELS = r"gemm|nvjet|xmma|cutlass|splitKreduce"
+
+
+class prefill_ranges:
+    """Within the block each call of the flash loop, the SSD scan and the
+    MoE dispatch and combine runs inside a ``record_function`` range named
+    for its kind (the model code looks each of them up in its module at
+    call time), so a trace can attribute the kernels each one launches."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.models import attention, moe, ssm
+
+        self.sites = [(attention, "flash_attention", "attention"), (ssm, "ssd_scan", "ssd_scan"),
+                      (moe, "dispatch", "moe_dispatch"), (moe, "combine", "moe_dispatch")]
+        self.saved = [getattr(m, n) for m, n, _ in self.sites]
+
+        def wrap(fn, kind):
+            def ranged(*a, **k):
+                with record_function(kind):
+                    return fn(*a, **k)
+            return ranged
+
+        for (m, n, kind), fn in zip(self.sites, self.saved):
+            setattr(m, n, wrap(fn, kind))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.sites, self.saved):
+            setattr(m, n, fn)
+
+
+class count_drops:
+    """Within the block, the token-expert pairs each MoE dispatch drops
+    and the pairs it routes, summed on the card (read at the end), and
+    each dispatch's experts ``idx`` (T, K) in call order.  Like
+    ``prefill_ranges`` it rebinds ``moe.dispatch``, so ``routed`` raises
+    where an MoE forward ran no dispatch through it."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.fn = moe, moe.dispatch
+        self.dropped, self.pairs, self.idx = [], 0, []
+
+        def counted(xt, idx, C, E):
+            buf, sort, pos = self.fn(xt, idx, C, E)
+            self.idx.append(idx)
+            self.dropped.append((pos < 0).sum())
+            self.pairs += pos.numel()
+            return buf, sort, pos
+
+        moe.dispatch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch = self.fn
+
+    def total(self) -> int:
+        return int(sum(self.dropped).item()) if self.dropped else 0
+
+    def routed(self, label) -> list:
+        """[dropped, routed] pairs; raises when no dispatch was seen."""
+        if not self.pairs:
+            raise AssertionError(f"{label}: the MoE forward ran no dispatch through moe.dispatch")
+        return [self.total(), self.pairs]
+
+
+def rerouted(pre, dec, B, S):
+    """(B, S) bool: the positions whose token took another set of experts
+    in some MoE layer in the prefill (``pre``: one dispatch a layer over
+    all B * S tokens) than in the decode loop (``dec``: one a layer a step
+    over B tokens; steps past the S-th ignored)."""
+    import torch
+
+    L = len(pre.idx)
+    a = torch.stack(pre.idx).reshape(L, B, S, -1)
+    b = torch.stack(dec.idx[: S * L]).reshape(S, L, B, -1).permute(1, 2, 0, 3)
+    return (a.sort(-1).values != b.sort(-1).values).any(-1).any(0)
+
+
+def prompt_tokens(dev, cfg, B, S, seed):
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+
+
+def control_params(cfg, params):
+    """``params`` with ``CONTROL_LEAF``'s slice zeroed (a copy of that leaf;
+    every other leaf shared)."""
+    path, at = CONTROL_LEAF[cfg.family]
+
+    def walk(node, i):
+        if i == len(path):
+            t = node.clone()
+            t[at] = 0
+            return t
+        return {**node, path[i]: walk(node[path[i]], i + 1)}
+
+    return walk(params, 0)
+
+
+def gap_row(got, want, keep=None):
+    """``got`` (B, S, V) against ``want``: the largest gap, over the largest
+    |want|, the mean gap, the entries over the reference's rule, and the
+    largest gap over the largest |want| at the positions ``keep`` (B, S)
+    marks."""
+    gap = (got - want).abs()
+    top = want.abs().max()
+    row = {"max_gap": float(gap.max()), "max_gap_rel": float(gap.max() / top),
+           "mean_gap": float(gap.mean()),
+           "over_reference_rule": int((gap > PREFILL_ATOL + PREFILL_RTOL * want.abs()).sum())}
+    if keep is not None and bool(keep.any()):
+        row["max_gap_rel_kept"] = float(gap[keep].max() / top)
+    return row
+
+
+def held_ok(cfg, row) -> bool:
+    """``gap_row``'s row within the family's hold."""
+    return row["max_gap_rel"] < PREFILL_REL_LIMIT[cfg.family] and (
+        not cfg.mla or row["mean_gap"] < PREFILL_MLA_MEAN)
+
+
+def hold_rule(cfg) -> str:
+    return (f"largest gap < {PREFILL_REL_LIMIT[cfg.family]} of the largest logit"
+            + (f", mean gap < {PREFILL_MLA_MEAN}" if cfg.mla else ""))
+
+
+def hold_prefill(cfg, params, tokens, label, held=True):
+    """``make_prefill`` over ``tokens`` (B, S) against the port's plain
+    ``greedy_generate`` (the decode step a token at a time) over the same
+    prompt on the card, at every position, both on ``reference_norms`` of
+    ``params``.  Held as ``PREFILL_REL_LIMIT`` says (``held_ok``); the
+    control (one block's output zeroed, ``control_params``) through the
+    same comparison must fail.  The reference's MLA rule asks for equal
+    argmax too; here the positions where the argmax differs are printed
+    with the decode's margin between the two choices, not failed: at full
+    width with random weights the top two logits of a 102,400-token
+    vocabulary can lie closer than the two paths' rounding gap.  Also:
+    whether the first greedy token agrees (where it does not, the
+    prefill's top-two margin there), and for MoE the pairs each side's
+    dispatches dropped, the share of positions whose token took other
+    experts on the two sides, and the largest gap at the other positions.
+    ``held=False`` prints the reading only (MoE at the config's capacity
+    factor: each side drops other pairs, so the two compute different
+    functions)."""
+    import torch
+
+    from repro_torch.models.model import reference_norms
+    from repro_torch.serve import greedy_generate, make_prefill
+
+    params = reference_norms(params)
+    B, S = tokens.shape
+    with count_drops() as pre_drops:
+        fwd = make_prefill(cfg)(params, {"tokens": tokens})
+    with count_drops() as dec_drops:
+        steps: list = []
+        first, _ = greedy_generate(cfg, params, tokens, 1, logits_out=steps)
+    dec, first = torch.cat(steps[:S], dim=1), first[:, 0]
+    del steps
+    if dec.shape != fwd.shape or not torch.isfinite(fwd).all():
+        raise AssertionError(f"{label} prefill: logits {tuple(fwd.shape)} against the decode "
+                             f"loop's {tuple(dec.shape)}, or not finite")
+    keep = None
+    if cfg.moe:
+        keep = ~rerouted(pre_drops, dec_drops, B, S)
+    row = dict({"B": B, "S": S, "top_logit": float(dec.abs().max())},
+               **gap_row(fwd, dec, keep))
+    gap = (fwd - dec).abs()
+    a_fwd, a_dec = fwd.argmax(-1), dec.argmax(-1)
+    differ = (a_fwd != a_dec).nonzero().tolist()
+    row["argmax_equal_share"] = 1 - len(differ) / (B * S)
+    # the decode's margin between its choice and the prefill's, and the gap there
+    row["argmax_differs"] = [
+        {"at": [b, s], "decode_margin": float(dec[b, s, a_dec[b, s]] - dec[b, s, a_fwd[b, s]]),
+         "gap_there": float(gap[b, s].max())} for b, s in differ]
+    del gap
+    nxt = fwd[:, -1].argmax(-1)
+    agree = nxt.to(first.dtype) == first
+    row["first_token_agrees"] = int(agree.sum())
+    if not bool(agree.all()):
+        top2 = fwd[:, -1].topk(2, dim=-1).values
+        row["top2_margin_where_differs"] = [float(m) for m in (top2[:, 0] - top2[:, 1])[~agree]]
+    if cfg.moe:
+        row["dropped_pairs"] = {"prefill": pre_drops.routed(label),
+                                "decode": dec_drops.routed(label)}
+        row["rerouted_share"] = float((~keep).float().mean())
+    del fwd
+    if not held:
+        log(f"{label} prefill B={B} S={S} against the plain decode loop (a reading, not held): "
+            + json.dumps(row))
+        return row
+    with count_drops() as ctl_drops:
+        ctl = make_prefill(cfg)(control_params(cfg, params), {"tokens": tokens})
+    row["control"] = gap_row(ctl, dec, ~rerouted(ctl_drops, dec_drops, B, S) if cfg.moe else None)
+    del ctl
+    log(f"{label} prefill B={B} S={S} against the plain decode loop ({hold_rule(cfg)}; the "
+        f"control, {'.'.join(CONTROL_LEAF[cfg.family][0])} zeroed, must fail): "
+        + json.dumps(row))
+    if held_ok(cfg, row["control"]):
+        raise AssertionError(f"{label}: the control passes the prefill's hold: {row}")
+    if not held_ok(cfg, row):
+        raise AssertionError(f"{label} prefill disagrees with the decode loop: {row}")
+    return row
+
+
+def profile_prefill(dev, cfg, prefill, params, batch, label):
+    """One ``torch.profiler`` session over one prefill (ended by a
+    synchronize): device time by kind (matmuls outside the ranges below,
+    the flash loop's ops, the SSD scan, the MoE dispatch and combine, the
+    rest) and the card's idle share of the call's wall time.  A kernel
+    belongs to the range its launch was enqueued in.  Raises where a range
+    that ``cfg``'s family runs holds no device time (``prefill_ranges``
+    rebinds the model's functions, so a call that no longer goes through
+    them shows here).  The trace goes to build/<label>_prefill_trace.json."""
+    import bisect
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with prefill_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        with record_function("prefill_call"):
+            prefill(params, batch)
+            torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", f"{label}_prefill_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                   and e.get("name") in PREFILL_KINDS)
+    call = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and e.get("name") == "prefill_call"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    dev_ev = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if len(call) != 1 or not dev_ev:
+        raise AssertionError(f"{label} prefill trace: {len(call)} call spans, "
+                             f"{len(dev_ev)} device events")
+    starts = [a for a, _, _ in spans]
+    split = {k: 0.0 for k in PREFILL_KINDS}
+    for e in dev_ev:
+        kind = None
+        t = launch.get(e.get("args", {}).get("correlation"))
+        if t is not None:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and spans[i][0] <= t <= spans[i][1]:
+                kind = spans[i][2]
+        if kind is None:
+            kind = "matmuls" if re.search(GEMM_KERNELS, e["name"]) else "rest"
+        split[kind] += e["dur"] / 1e3
+    busy, end = 0.0, 0.0
+    for e in sorted(dev_ev, key=lambda e: e["ts"]):             # union of intervals
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+            end = b
+    wall = call[0]["dur"]
+    out = {"device_ms": {k: round(v, 4) for k, v in split.items()},
+           "device_ms_total": round(sum(split.values()), 4), "wall_ms": wall / 1e3,
+           "idle": 1 - busy / wall, "kernels": len(dev_ev)}
+    log(f"{label} prefill under the profiler: " + json.dumps(out))
+    need = ["matmuls"] + (["attention"] if cfg.family != "ssm" else []) \
+        + (["ssd_scan"] if cfg.family in ("ssm", "hybrid") else []) \
+        + (["moe_dispatch"] if cfg.moe else [])
+    empty = [k for k in need if not split[k]]
+    if empty:
+        raise AssertionError(f"{label} prefill trace: no device time under {empty}")
+    return out
+
+
+def time_prefill(dev, cfg, params, B, S, seed, label):
+    """``make_prefill`` at B x S: the aux loss (and for MoE the dropped
+    pairs) from a first, warm-up forward, then one synchronised prefill
+    timed on the host clock (tokens/s = B * S over its seconds) with the
+    card's peak memory during it, then one under the profiler
+    (``profile_prefill``).  Returns the readings and the card's peak before
+    this (the peak count restarts here)."""
+    import torch
+
+    from repro_torch.models import forward
+    from repro_torch.serve import make_prefill
+
+    phase_peak = torch.cuda.max_memory_allocated(dev)
+    batch = {"tokens": prompt_tokens(dev, cfg, B, S, seed)}
+    with count_drops() as drops:
+        logits, aux = forward(cfg, params, batch)
+    if logits.shape != (B, S, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{label} prefill B={B} S={S}: logits {tuple(logits.shape)} "
+                             "not finite or of another shape")
+    del logits
+    prefill = make_prefill(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    del logits
+    out = {"B": B, "S": S, "seconds": seconds, "tokens_per_s": B * S / seconds,
+           "peak_card_bytes": peak, "resident_bytes": resident, "aux": float(aux)}
+    if cfg.moe:
+        out["dropped_pairs"], out["routed_pairs"] = drops.routed(label)
+    log(f"{label} prefill B={B} S={S}: {seconds:.4f} s, {out['tokens_per_s']:.1f} tokens/s, "
+        f"card peak {peak} B ({resident} B resident before it), aux {out['aux']}"
+        + (f", {out['dropped_pairs']} of {out['routed_pairs']} token-expert pairs dropped"
+           if cfg.moe else ""))
+    out["profile"] = profile_prefill(dev, cfg, prefill, params, batch, label)
+    return out, phase_peak
+
+
+def run_prefill(dev, cfg, params, label, seed, hold_tokens=None):
+    """The phase's prefill: held against the plain decode loop at
+    PREFILL_SHAPES' hold size (MoE at a capacity factor where no pair
+    drops on either side, as the reference holds it; at the config's
+    factor, where each side drops its own pairs, a reading only), then
+    timed at the timed size.  Returns (readings, the card's peak before)."""
+    import dataclasses
+
+    hb, hs, tb, ts = PREFILL_SHAPES[label]
+    tokens = hold_tokens if hold_tokens is not None else prompt_tokens(dev, cfg, hb, hs, seed)
+    out = {}
+    if cfg.moe:
+        # C = int(T * K / E * cf) + 1 >= T + 1 for every T: no expert overflows
+        held = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+        out["hold"] = hold_prefill(held, params, tokens, label + " (no drops)")
+        out["default_cf"] = hold_prefill(
+            cfg, params, tokens, f"{label} (capacity factor {cfg.capacity_factor})", held=False)
+    else:
+        out["hold"] = hold_prefill(cfg, params, tokens, label)
+    out["timed"], phase_peak = time_prefill(dev, cfg, params, tb, ts, seed + 1, label)
+    return out, phase_peak
+
+
+def causal_prefix(dev, cfg, params, label, seed):
+    """The prefill at PREFILL_SHAPES' timed size, cut to its first half,
+    against the prefill of that half alone (the attention is causal, so
+    they compute the same function), on ``reference_norms`` of ``params``:
+    held as ``hold_prefill`` holds, and the control's half (one block's
+    output zeroed) against the same whole must fail."""
+    from repro_torch.models.model import reference_norms
+    from repro_torch.serve import make_prefill
+
+    _, _, B, S = PREFILL_SHAPES[label]
+    params = reference_norms(params)
+    tokens = prompt_tokens(dev, cfg, B, S, seed)
+    prefill = make_prefill(cfg)
+    whole = prefill(params, {"tokens": tokens})[:, : S // 2]
+    half = prefill(params, {"tokens": tokens[:, : S // 2]})
+    row = dict({"S": S, "prefix": S // 2}, **gap_row(half, whole))
+    del half
+    row["control"] = gap_row(prefill(control_params(cfg, params),
+                                     {"tokens": tokens[:, : S // 2]}), whole)
+    log(f"{label} prefill of {S} tokens, first {S // 2} positions against the prefill of "
+        f"those alone ({hold_rule(cfg)}; the control must fail): " + json.dumps(row))
+    if held_ok(cfg, row["control"]):
+        raise AssertionError(f"{label}: the control passes the causal hold {row}")
+    if not held_ok(cfg, row):
+        raise AssertionError(f"{label}: the prefill's prefix differs from its own prefill {row}")
+    return row
+
+
 def k3_windows(sizes, cap):
     """K3 launches for one batch of same-layout leaves of ``sizes`` bytes:
     ``core.device_plane.produce_planes_batched`` closes a window before a
@@ -2340,11 +2784,12 @@ def phase_granite(dev, zcfg):
     sizes["plain_bytes_52"] = 52 * store.raw_bytes // L + store.static_bytes
     run_rings(dev, cfg, store, params, "granite", out, SEED + 20)
     run_kv_tier(dev, zcfg, cfg, store, params, "granite", out, KV_PROMPT, KV_GEN, SEED + 21)
+    out["prefill"], peak = run_prefill(dev, cfg, params, "granite", SEED + 22)
     shapes = [tuple(ct.shape) for ct in store.manifest("layers", 0)["leaves"]]
     out["kernels"] = measure_leaf_kernels(
         dev, store.feeds("layers")[0][shapes.index(W_IN)], params["layers"]["mlp"]["w_in"][0],
         "granite w_in")
-    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_card_bytes"] = max(peak, torch.cuda.max_memory_allocated(dev))
     out["phase_s"] = time.perf_counter() - t_start
     log(f"granite phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
     return out
@@ -2392,6 +2837,7 @@ def phase_olmoe(dev, zcfg):
         [("moe_layers", 0), ("moe_layers", cfg.n_layers - 1)])
     out["plain_bytes_on_card"] = n_bytes
     run_rings(dev, cfg, store, params, "olmoe", out, SEED + 30)
+    out["prefill"], peak = run_prefill(dev, cfg, params, "olmoe", SEED + 32)
     out["kernels"] = {
         "expert": measure_leaf_kernels(
             dev, leaf_feed(store, "moe_layers", 0, "moe/experts/w_gate"),
@@ -2400,7 +2846,7 @@ def phase_olmoe(dev, zcfg):
             dev, leaf_feed(store, "moe_layers", 0, "moe/router/w"),
             leaf_of(params, "moe_layers", 0, "moe/router/w"), "olmoe router", reps=20),
     }
-    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_card_bytes"] = max(peak, torch.cuda.max_memory_allocated(dev))
     out["phase_s"] = time.perf_counter() - t_start
     log(f"olmoe phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
     return out
@@ -2448,6 +2894,7 @@ def phase_deepseek(dev, zcfg):
     run_rings(dev, cfg, store, params, "deepseek", out, SEED + 40)
     run_kv_tier(dev, zcfg, cfg, store, params, "deepseek", out, DS_KV_PROMPT, DS_KV_GEN,
                 SEED + 41)
+    out["prefill"], peak = run_prefill(dev, cfg, params, "deepseek", SEED + 42)
     out["kernels"] = {
         "expert": measure_leaf_kernels(
             dev, leaf_feed(store, "moe_layers", 0, "moe/experts/w_gate"),
@@ -2457,7 +2904,7 @@ def phase_deepseek(dev, zcfg):
             dev, leaf_feed(store, "moe_layers", 0, "moe/router/w"),
             leaf_of(params, "moe_layers", 0, "moe/router/w"), "deepseek router", reps=20),
     }
-    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_card_bytes"] = max(peak, torch.cuda.max_memory_allocated(dev))
     out["phase_s"] = time.perf_counter() - t_start
     log(f"deepseek phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
     return out
@@ -2520,6 +2967,7 @@ def phase_mamba2(dev, zcfg):
                              f"blobs checked, {f32} f32 leaves")
     out["plain_bytes_on_card"] = n_bytes
     run_rings(dev, cfg, store, params, "mamba2", out, SEED + 50)
+    out["prefill"], peak = run_prefill(dev, cfg, params, "mamba2", SEED + 52)
     out["kernels"] = {
         "in_proj": measure_leaf_kernels(
             dev, leaf_feed(store, "layers", 0, "mamba/in_proj/w"),
@@ -2527,7 +2975,7 @@ def phase_mamba2(dev, zcfg):
         "A_log": {"K2": measure_k2_leaf(dev, leaf_of(params, "layers", 0, "mamba/ssm/A_log"),
                                         "mamba2 A_log")},
     }
-    out["peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_card_bytes"] = max(peak, torch.cuda.max_memory_allocated(dev))
     out["phase_s"] = time.perf_counter() - t_start
     log(f"mamba2 phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
     return out
@@ -2606,6 +3054,12 @@ def phase_zamba2(dev, zcfg):
     log(f"zamba2 plain greedy_generate on the card: B={BATCH}, {PROMPT} + {STEPS} tokens in "
         f"{out['plain_s']:.3f} s ({out['plain_tokens_per_s']:.2f} tokens/s); first sequence "
         f"{plain_tokens[0].tolist()}")
+    # prefill: the same prompt against the decode loop, then timed past the
+    # shared block's window, whose first half must be the prefill of that
+    # half alone (the attention is causal)
+    out["prefill"], prefill_peak = run_prefill(dev, cfg, params, "zamba2", SEED + 60,
+                                               hold_tokens=prompt)
+    out["prefill"]["causal"] = causal_prefix(dev, cfg, params, "zamba2", SEED + 61)
 
     work = os.path.join(ROOT, "build", "chip_zamba2_ckpt")
     shutil.rmtree(work, ignore_errors=True)
@@ -2726,7 +3180,8 @@ def phase_zamba2(dev, zcfg):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["peak_card_bytes"] = max(out.get("save_peak_card_bytes", 0),
-                                 out.get("serve_peak_card_bytes", 0),
+                                 out.get("serve_peak_card_bytes", 0), prefill_peak,
+                                 out["prefill"]["timed"]["peak_card_bytes"],
                                  torch.cuda.max_memory_allocated(dev))
     out["phase_s"] = time.perf_counter() - t_start
     log(f"zamba2 phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
@@ -2993,6 +3448,8 @@ def main() -> int:
          "index_pass": sf["index_pass"],
          "one_shot": dict(sf["one_shot"], launches_file=files["launches"]["huffdecode_serial"],
                           launches_checkpoint_restore=ckpt["restore_launches"][
+                              "huffdecode_serial"],
+                          launches_restore_then_prefill=ckpt["prefill_launches"][
                               "huffdecode_serial"]),
          "seg_bits_sweep": k1["seg_sweep"], "seg_bits_fastest": k1["seg_fastest"],
          "granite": dict(k1_serial(gk["K1"], gl), shape=W_IN),
@@ -3011,6 +3468,7 @@ def main() -> int:
          "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4],
          "launches_file": files["launches"]["plane_consumer"],
          "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"],
+         "launches_restore_then_prefill": ckpt["prefill_launches"]["plane_consumer"],
          "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN),
          "moe": moe_rows("K2", "plane_consumer"), "ssm": ssm_rows("K2", "plane_consumer")},
         {"name": "plane_producer", "route": "cuda",
@@ -3075,7 +3533,19 @@ def main() -> int:
         kernels.append(entry)
     for label, ph in list(moe.items()) + list(ssm.items()):
         log(f"{label} summary: " + json.dumps({k: v for k, v in ph.items()
-                                               if k not in ("kernels", "trace")}))
+                                               if k not in ("kernels", "trace", "prefill")}))
+    prefills = dict({"repro_gpt_100m": ckpt["prefill"], "granite": granite["prefill"]},
+                    **{label: ph["prefill"] for label, ph in list(moe.items())
+                       + list(ssm.items())})
+    log("prefill summary (tokens/s, card peak bytes, device ms by kind, idle share): "
+        + json.dumps({label: {"B": p["timed"]["B"], "S": p["timed"]["S"],
+                              "tokens_per_s": p["timed"]["tokens_per_s"],
+                              "peak_card_bytes": p["timed"]["peak_card_bytes"],
+                              "device_ms": p["timed"]["profile"]["device_ms"],
+                              "idle": p["timed"]["profile"]["idle"],
+                              "hold_max_gap_rel": p["hold"]["max_gap_rel"],
+                              "control_max_gap_rel": p["hold"]["control"]["max_gap_rel"]}
+                      for label, p in prefills.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

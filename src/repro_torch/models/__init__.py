@@ -1,5 +1,5 @@
 """Model code as plain functions over nested dicts of tensors."""
 
-from .model import decode_step, init_decode_state
+from .model import decode_step, forward, init_decode_state
 
-__all__ = ["decode_step", "init_decode_state"]
+__all__ = ["decode_step", "forward", "init_decode_state"]

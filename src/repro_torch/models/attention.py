@@ -1,9 +1,22 @@
-"""Attention for decode: the caches and one-token GQA and MLA decode.
+"""Attention: the blockwise flash forward and the dense variant over a
+whole sequence (forward and prefill), and the caches and one-token GQA
+and MLA decode.
 
-A port of ``repro.models.attention``'s ``init_kv_cache``, ``gqa_decode``,
-``init_mla_cache`` and ``mla_decode``.  The caches are read-only here;
-the caller writes every layer's new-token slot once after the layer
-loop.  The training/prefill attention comes with a later slice.
+A port of ``repro.models.attention``: ``_block_mask``,
+``_flash_fwd_impl`` / ``flash_attention`` (the forward only: there is no
+backward here), ``dense_attention``, ``_attend``, ``_qkv`` /
+``gqa_train``, ``_mla_qkv`` / ``mla_train``, ``init_kv_cache``,
+``gqa_decode``, ``init_mla_cache`` and ``mla_decode``.  The caches are
+read-only in the decode functions; the caller writes every layer's
+new-token slot once after the layer loop.
+
+The flash loop keeps the reference's rounding points: ``q`` scaled in
+bf16 (by the bf16 value of ``hd ** -0.5``, as JAX's weakly typed scalar
+becomes), f32 scores, masked entries set to ``NEG_INF``, the online max,
+sum and correction in f32, ``p`` rounded to the value dtype before the PV
+product (accumulated in f32), and ``acc / max(l, 1e-30)`` rounded to
+bf16.  Its score buffer is one (B, G, rep, q_block, kv_block) f32 block
+at a time.
 """
 
 from __future__ import annotations
@@ -14,9 +27,186 @@ import torch
 
 from . import layers
 
-__all__ = ["NEG_INF", "KVCache", "init_kv_cache", "gqa_decode", "init_mla_cache", "mla_decode"]
+__all__ = [
+    "NEG_INF", "flash_attention", "dense_attention", "gqa_train", "mla_train",
+    "KVCache", "init_kv_cache", "gqa_decode", "init_mla_cache", "mla_decode",
+]
 
 NEG_INF = -1e30
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+def _bf16_scale(hd: int) -> float:
+    """``hd ** -0.5`` as the bf16 value a bf16 array multiplies by in JAX
+    (a weakly typed Python scalar takes the array's dtype)."""
+    return float(torch.tensor(hd ** -0.5, dtype=torch.bfloat16))
+
+
+def _qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor, pos_thw=None):
+    """q (B, S, H, hd), k and v (B, S, G, hd): the projections (with their
+    biases where the config has them) and RoPE at ``positions`` (B, S)."""
+    if pos_thw is not None:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE (pos_thw) is not ported yet")
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = layers.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = layers.dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = layers.dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.use_rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _block_mask(qpos: torch.Tensor, kpos: torch.Tensor, S: int, causal: bool,
+                window: int) -> torch.Tensor:
+    mask = kpos[None, :] < S                       # padding
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def _block_live(q0: int, q1: int, k0: int, k1: int, S: int, causal: bool, window: int) -> bool:
+    """Whether any (query, key) pair of rows ``[q0, q1)`` and keys
+    ``[k0, k1)`` is unmasked.  A block with none changes no row the
+    reference keeps: where a row's max is finite its ``p`` is 0 and its
+    correction 1, and where it is still ``NEG_INF`` the next live block's
+    correction of 0 clears what it added.  So it is skipped."""
+    if k0 >= S:
+        return False
+    if causal and k0 > q1 - 1:
+        return False
+    return not (window > 0 and k1 - 1 <= q0 - window)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int = 0,
+    q_block: int = 512, kv_block: int = 1024,
+) -> torch.Tensor:
+    """Blockwise online-softmax attention, the forward of the reference's
+    ``flash_attention``.
+
+    q: (B, S, H, hd); k: (B, S, G, hd); v: (B, S, G, hd_v) with H % G == 0
+    (hd_v may differ from hd: MLA has 192-wide qk and 128-wide v).
+    ``window > 0`` keeps keys with ``kpos > qpos - window``.  Blocks are
+    ``min(q_block, S)`` and ``min(kv_block, S)``, q/k/v zero-padded to a
+    whole number of them; each q block runs its kv blocks in order.
+    Returns (B, S, H, hd_v) in q's dtype.
+    """
+    B, S, H, hd = q.shape
+    G, hd_v = k.shape[2], v.shape[-1]
+    rep = H // G
+    qb_len, kb_len = min(q_block, S), min(kv_block, S)
+    pad_q, pad_k = (-S) % qb_len, (-S) % kb_len
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    Sq, Sk = S + pad_q, S + pad_k
+    dev = q.device
+    # (B, G, rep, S, hd) queries scaled in bf16; (B, G, S, hd) keys, values
+    qs = (q * _bf16_scale(hd)).reshape(B, Sq, G, rep, hd).permute(0, 2, 3, 1, 4)
+    kt = _f32(k.permute(0, 2, 1, 3))
+    vt = v.permute(0, 2, 1, 3)
+    out = torch.empty((B, G, rep, Sq, hd_v), dtype=q.dtype, device=dev)
+    for q0 in range(0, Sq, qb_len):
+        q1 = q0 + qb_len
+        qb = _f32(qs[:, :, :, q0:q1]).reshape(B, G, rep * qb_len, hd)
+        qpos = torch.arange(q0, q1, device=dev)
+        m = torch.full((B, G, rep, qb_len), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, G, rep, qb_len), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, G, rep, qb_len, hd_v), dtype=torch.float32, device=dev)
+        for k0 in range(0, Sk, kb_len):
+            k1 = k0 + kb_len
+            if not _block_live(q0, q1, k0, k1, S, causal, window):
+                continue
+            s = torch.matmul(qb, kt[:, :, k0:k1].transpose(-1, -2))
+            s = s.reshape(B, G, rep, qb_len, kb_len)
+            mask = _block_mask(qpos, torch.arange(k0, k1, device=dev), S, causal, window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.matmul(_f32(p.to(v.dtype)).reshape(B, G, rep * qb_len, kb_len),
+                              _f32(vt[:, :, k0:k1]))
+            acc = acc * corr[..., None] + pv.reshape(B, G, rep, qb_len, hd_v)
+            m = m_new
+        out[:, :, :, q0:q1] = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
+    return out[:, :, :, :S].reshape(B, H, S, hd_v).transpose(1, 2)
+
+
+def dense_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int = 0
+) -> torch.Tensor:
+    """Unblocked masked attention, the reference's ``dense_attention``:
+    ``q`` scaled in bf16, f32 scores and softmax, the weights rounded to
+    the value dtype before the PV product, the output rounded to q's."""
+    B, S, H, hd = q.shape
+    G = k.shape[2]
+    rep = H // G
+    qr = _f32(q.reshape(B, S, G, rep, hd) * _bf16_scale(hd))
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qr, _f32(k))
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", _f32(w.to(v.dtype)), _f32(v)).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+def _attend(q, k, v, cfg, *, causal: bool) -> torch.Tensor:
+    if cfg.attn_impl == "dense":
+        return dense_attention(q, k, v, causal=causal, window=cfg.window)
+    return flash_attention(q, k, v, causal=causal, window=cfg.window,
+                           q_block=cfg.q_block, kv_block=cfg.kv_block)
+
+
+def gqa_train(p, x: torch.Tensor, cfg, positions: torch.Tensor, pos_thw=None) -> torch.Tensor:
+    """GQA over a whole sequence: x (B, S, D) → (B, S, D)."""
+    q, k, v = _qkv(p, x, cfg, positions, pos_thw)
+    out = _attend(q, k, v, cfg, causal=not cfg.encoder_only)
+    B, S = x.shape[:2]
+    return layers.dense(p["wo"], out.reshape(B, S, -1))
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """MLA's q_full (B, S, H, dn + dr), k_full (the shared rope key
+    broadcast to every head) and value (B, S, H, dv), and the latent
+    c_kv (B, S, r) and rope key (B, S, 1, dr) a cache would hold."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cq = layers.rmsnorm(p["q_norm"], layers.dense(p["w_dq"], x))
+    q = layers.dense(p["w_uq"], cq).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = layers.rmsnorm(p["kv_norm"], layers.dense(p["w_dkv"], x))
+    k_rope = layers.dense(p["w_kr"], x).reshape(B, S, 1, dr)
+    k_rope = layers.apply_rope(k_rope, positions, cfg.rope_theta)
+    k_nope = layers.dense(p["w_uk"], c_kv).reshape(B, S, H, dn)
+    val = layers.dense(p["w_uv"], c_kv).reshape(B, S, H, dv)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    return q_full, k_full, val, c_kv, k_rope
+
+
+def mla_train(p, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
+    """MLA over a whole sequence: causal attention of the 192-wide (at
+    published widths) q/k against the 128-wide value."""
+    q, k, v, _, _ = _mla_qkv(p, x, cfg, positions)
+    out = _attend(q, k, v, cfg, causal=True)
+    B, S = x.shape[:2]
+    return layers.dense(p["wo"], out.reshape(B, S, -1))
 
 
 class KVCache(NamedTuple):
@@ -30,10 +220,6 @@ def init_kv_cache(cfg, batch: int, length: int, n_layers: int, device) -> KVCach
         torch.zeros(shape, dtype=torch.bfloat16, device=device),
         torch.zeros(shape, dtype=torch.bfloat16, device=device),
     )
-
-
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.float32)
 
 
 def gqa_decode(

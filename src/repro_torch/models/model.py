@@ -1,8 +1,12 @@
-"""Decode state and the one-token decode step for the dense, MoE, SSM and
-hybrid families.
+"""The full-sequence forward, the decode state and the one-token decode
+step for the dense, MoE, SSM and hybrid families.
 
-A port of ``repro.models.model``'s ``init_decode_state``, ``decode_step``
-and ``_slot_write`` as plain functions of ``(cfg, params, ...)``: the
+A port of ``repro.models.model``'s ``forward`` / ``_trunk`` /
+``_scan_stack`` / ``_hybrid_forward``, ``init_decode_state``,
+``decode_step`` and ``_slot_write`` as plain functions of ``(cfg, params,
+...)``.  The forward runs each stack's ``*_block_train`` over the stacked
+params' leading axis and sums the blocks' aux losses; remat and the
+sharding constraints have no numeric effect and are dropped.  In decode the
 layer loop is a Python loop over the stacked params' leading axis (the
 reference scans it) — ``dense_layers`` then ``moe_layers`` for the MoE
 family — and the cache slot write happens once after it, for all layers.
@@ -31,8 +35,10 @@ __all__ = [
     "param_shapes",
     "param_dtypes",
     "init_params",
+    "reference_norms",
     "cache_len",
     "init_decode_state",
+    "forward",
     "decode_step",
     "decode_front",
     "decode_tail",
@@ -47,13 +53,17 @@ def block_fn(kind: str) -> Callable:
             "ssm": blocks.mamba_block_decode}[kind]
 
 
-def _check_family(cfg) -> None:
-    if not cfg.has_decode:
-        raise ValueError(f"{cfg.name} is encoder-only: no decode state")
+def _check_ported(cfg) -> None:
     if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet"
         )
+
+
+def _check_family(cfg) -> None:
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode state")
+    _check_ported(cfg)
 
 
 def layer_plan(cfg) -> List[Tuple[str, int, str]]:
@@ -226,6 +236,28 @@ def init_params(cfg, seed: int = 0, *, device: Any = "cuda") -> Dict[str, Any]:
     return draw(param_shapes(cfg), param_dtypes(cfg))
 
 
+def reference_norms(params: Dict[str, Any]) -> Dict[str, Any]:
+    """``params`` with every norm's gain 1 and every layernorm bias 0, as
+    the reference's ``Model.init`` sets them (``layers.init_rmsnorm`` /
+    ``init_layernorm``); every other leaf is shared, not copied.
+
+    :func:`init_params` draws the gains at ``0.02 * N(0, 1)`` like every
+    other leaf, so each norm scales its block's input by about 0.02 and the
+    blocks move the logits by less than 1e-3 of the largest: a comparison
+    of logits on such params cannot see the blocks.  On these it can.
+    """
+
+    def walk(node, in_norm):
+        if not isinstance(node, dict):
+            return node
+        if in_norm:
+            return {k: (torch.ones_like(v) if k == "g" else torch.zeros_like(v))
+                    if k in ("g", "b") else v for k, v in node.items()}
+        return {k: walk(v, k.endswith("norm")) for k, v in node.items()}
+
+    return walk(params, False)
+
+
 def cache_len(cfg, seq_len: int) -> int:
     if cfg.window:
         return min(seq_len, cfg.window)
@@ -266,6 +298,83 @@ def init_decode_state(
         kv = attention.init_kv_cache(cfg, batch, L, cfg.n_layers, dev)
         state.update({"kv_k": kv.k, "kv_v": kv.v})
     return state
+
+
+def _check_one_device(params, batch: Dict[str, torch.Tensor]) -> None:
+    """Raise unless every param leaf and batch tensor is on one device."""
+    devs = {t.device for t in _util.tree_leaves(params)} | {t.device for t in batch.values()}
+    if len(devs) != 1:
+        raise ValueError(f"params and batch lie on more than one device: {sorted(map(str, devs))}")
+
+
+def _scan_stack(stack, x: torch.Tensor, apply_fn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_fn(layer_params, x) -> (x, aux)`` over the stack's leading
+    axis in order; the aux losses summed in f32."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(_util.tree_leaves(stack)[0].shape[0]):
+        x, a = apply_fn(_util.tree_map(lambda t, i=i: t[i], stack), x)
+        aux = aux + a
+    return x, aux
+
+
+def forward(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: ``batch["tokens"]`` (B, S) → (f32 logits
+    (B, S, vocab), aux loss f32 scalar).
+
+    Runs on the device of its params; params and tokens on more than one
+    device raise.  The vlm and audio families (front ends, M-RoPE) are not
+    ported yet and raise ``NotImplementedError``.
+    """
+    _check_ported(cfg)
+    _check_one_device(params, batch)
+    x, aux = _trunk(cfg, params, batch)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return layers.unembed(head, x), aux
+
+
+def _trunk(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Everything up to and including the final norm: (x, aux)."""
+    x = layers.embed(params["embed"], batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    if cfg.pos_embedding == "learned":
+        x = x + params["pos"]["table"][:S][None].to(x.dtype)
+    if cfg.family == "dense":
+        x, aux = _scan_stack(params["layers"], x, lambda lp, h: blocks.dense_block_train(
+            lp, h, cfg, positions))
+    elif cfg.family == "moe":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if "dense_layers" in params:
+            x, a = _scan_stack(params["dense_layers"], x, lambda lp, h: blocks.dense_block_train(
+                lp, h, cfg, positions))
+            aux = aux + a
+        x, a = _scan_stack(params["moe_layers"], x, lambda lp, h: blocks.moe_block_train(
+            lp, h, cfg, positions))
+        aux = aux + a
+    elif cfg.family == "ssm":
+        x, aux = _scan_stack(params["layers"], x, lambda lp, h: blocks.mamba_block_train(
+            lp, h, cfg))
+    else:
+        x, aux = _hybrid_forward(cfg, params, x, positions)
+    return blocks.norm_apply(cfg, params["final_norm"], x), aux
+
+
+def _hybrid_forward(cfg, params, x: torch.Tensor, positions: torch.Tensor):
+    """Each of ``mamba_groups``' groups of Mamba2 layers, then the one
+    ``shared_attn`` dense block (with the config's window) at
+    ``positions``; then the ``mamba_tail``.  aux is 0."""
+    shared = params["shared_attn"]
+
+    def mamba(lp, h):
+        return blocks.mamba_block_train(lp, h, cfg)
+
+    for g in range(_util.tree_leaves(params["mamba_groups"])[0].shape[0]):
+        group = _util.tree_map(lambda t, g=g: t[g], params["mamba_groups"])
+        x, _ = _scan_stack(group, x, mamba)
+        x, _ = blocks.dense_block_train(shared, x, cfg, positions)
+    if "mamba_tail" in params:
+        x, _ = _scan_stack(params["mamba_tail"], x, mamba)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def decode_front(cfg, params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

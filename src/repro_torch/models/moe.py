@@ -1,9 +1,9 @@
-"""Mixture-of-Experts for decode: top-k router and sorted capacity dispatch.
+"""Mixture-of-Experts: top-k router and sorted capacity dispatch.
 
-A port of the inference half of ``repro.models.moe``: ``moe_apply``,
-``_dispatch_one`` and ``_combine_rows`` / ``_combine_one``, and the
-shared experts.  The load-balance loss and the custom backward belong to
-training and are left out, as ``moe_block_decode`` discards the loss.
+A port of the forward of ``repro.models.moe``: ``moe_apply`` with its
+Switch-style load-balance loss, ``_dispatch_one`` and ``_combine_rows`` /
+``_combine_one``, and the shared experts.  The custom backward belongs to
+training and is left out.
 
 Tokens reshape to ``(dispatch_shards, T_loc, D)`` and each shard routes
 on its own, as the reference's ``vmap`` over shards does.  Each expert
@@ -30,7 +30,7 @@ import torch
 
 from . import layers
 
-__all__ = ["capacity", "route", "dispatch", "combine", "moe_apply"]
+__all__ = ["capacity", "router_probs", "top_k", "route", "dispatch", "combine", "moe_apply"]
 
 
 def capacity(cfg, t_loc: int) -> int:
@@ -38,26 +38,37 @@ def capacity(cfg, t_loc: int) -> int:
     return int(t_loc * cfg.experts_per_token / cfg.n_experts * cfg.capacity_factor) + 1
 
 
-def route(p, xt: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xt: (T, D) → (gate (T, K) f32, idx (T, K) int64).
+def router_probs(p, xt: torch.Tensor) -> torch.Tensor:
+    """xt: (..., D) → the router's softmax (..., E) in f32.
 
     The logits are a full f32 product.  TF32 stays off (PyTorch's default
     for matmuls): with it the card would round the router's operands to
     10 mantissa bits, and a near-tie between two experts' probabilities
     could then pick another expert than the reference does.
+    """
+    logits = layers.dense(p["router"], xt, compute_dtype=torch.float32)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def top_k(probs: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """probs (..., E) → (gate (..., K) f32, renormalised; idx (..., K) int64).
 
     ``jax.lax.top_k`` puts the lower index first among equal values;
     ``torch.topk`` documents no order for ties, so the top K come from a
     stable descending sort.
     """
-    logits = layers.dense(p["router"], xt, compute_dtype=torch.float32)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = e / e.sum(dim=-1, keepdim=True)
     K = cfg.experts_per_token
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[..., :K], idx[..., :K]
     gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
     return gate, idx
+
+
+def route(p, xt: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xt: (..., D) → (probs (..., E) f32, gate (..., K) f32, idx (..., K) int64)."""
+    probs = router_probs(p, xt)
+    return (probs,) + top_k(probs, cfg)
 
 
 def dispatch(xt: torch.Tensor, idx: torch.Tensor, C: int, E: int):
@@ -107,8 +118,10 @@ def _experts(we, buf: torch.Tensor) -> torch.Tensor:
     return layers._f32_product(layers.silu_bf16(h) * u, we["w_down"])
 
 
-def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, D) → y (B, S, D): routed experts plus the shared ones."""
+def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) → (y (B, S, D), aux): routed experts plus the shared
+    ones, and the load-balance loss ``E * sum(mean probs * mean
+    one_hot(top-1 expert))`` over every token of every shard (f32)."""
     B, S, D = x.shape
     E = cfg.n_experts
     DS = max(1, cfg.dispatch_shards)
@@ -116,13 +129,16 @@ def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     if T % DS:
         raise ValueError(f"{T} tokens do not split into {DS} dispatch shards")
     xt = x.reshape(DS, T // DS, D)
+    probs, gate, idx = route(p, xt, cfg)                           # (DS, T_loc, E|K)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.nn.functional.one_hot(idx[..., 0], E).to(torch.float32).mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
     C = capacity(cfg, T // DS)
     ys = []
     for s in range(DS):
-        gate, idx = route(p, xt[s], cfg)
-        buf, sort, pos = dispatch(xt[s], idx, C, E)
-        ys.append(combine(_experts(p["experts"], buf), sort, pos, idx, gate))
+        buf, sort, pos = dispatch(xt[s], idx[s], C, E)
+        ys.append(combine(_experts(p["experts"], buf), sort, pos, idx[s], gate[s]))
     y = torch.stack(ys)
     if "shared" in p:
         y = y + layers.swiglu(p["shared"], xt)
-    return y.reshape(B, S, D).to(x.dtype)
+    return y.reshape(B, S, D).to(x.dtype), aux

@@ -1,5 +1,5 @@
-"""Serving: the compressed-resident param store, the KV tier and the
-decode steps."""
+"""Serving: the compressed-resident param store, the KV tier, prefill and
+the decode steps."""
 
 from .compressed import CompressedParamStore
 from .kvcache import KVCacheStore
@@ -7,6 +7,7 @@ from .step import (
     greedy_generate,
     make_compressed_serve_step,
     make_kv_tiered_serve_step,
+    make_prefill,
     make_serve_step,
 )
 
@@ -16,5 +17,6 @@ __all__ = [
     "greedy_generate",
     "make_compressed_serve_step",
     "make_kv_tiered_serve_step",
+    "make_prefill",
     "make_serve_step",
 ]

@@ -1,4 +1,4 @@
-"""Serving: the plain decode step, the KV-tiered step, the
+"""Serving: prefill, the plain decode step, the KV-tiered step, the
 compressed-resident ring (whole layers or tiles, with or without the KV
 tier), greedy generation.
 
@@ -20,15 +20,29 @@ import torch
 
 from .. import _util
 from ..models.model import (
-    block_fn, cache_keys, decode_front, decode_step, decode_tail, layer_plan, write_caches,
+    block_fn, cache_keys, decode_front, decode_step, decode_tail, forward, layer_plan,
+    write_caches,
 )
 
 __all__ = [
+    "make_prefill",
     "make_serve_step",
     "make_kv_tiered_serve_step",
     "make_compressed_serve_step",
     "greedy_generate",
 ]
+
+
+def make_prefill(cfg) -> Callable:
+    """prefill(params, batch) → f32 logits (B, S, vocab) for the whole
+    prompt ``batch["tokens"]`` (B, S): one :func:`~repro_torch.models.
+    forward` (blockwise attention, chunked SSD), on the params' device."""
+
+    def prefill(params, batch):
+        logits, _ = forward(cfg, params, batch)
+        return logits
+
+    return prefill
 
 
 def make_serve_step(cfg) -> Callable:

@@ -1179,8 +1179,8 @@ def test_moe_decode_on_card_matches_the_cpu(cuda, name):
     layer = _util.tree_map(lambda a: a[0], params["moe_layers"]["moe"])
     xt = (torch.randn(16, cfg.d_model, generator=torch.Generator().manual_seed(1))
           ).to(torch.bfloat16)
-    g0, i0 = moe.route(layer, xt, cfg)
-    g1, i1 = moe.route(_util.tree_map(lambda a: a.to(cuda), layer), xt.to(cuda), cfg)
+    _, g0, i0 = moe.route(layer, xt, cfg)
+    _, g1, i1 = moe.route(_util.tree_map(lambda a: a.to(cuda), layer), xt.to(cuda), cfg)
     assert torch.equal(i0, i1.cpu()) and torch.allclose(g0, g1.cpu(), rtol=1e-6, atol=0)
     toks = torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 2, 1)).astype(np.int32))

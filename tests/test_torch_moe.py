@@ -171,7 +171,7 @@ def _ref_dispatch(jcfg, layer, x):
 def _port_dispatch(cfg, layer, x):
     p = convert.params_from_numpy(layer, device="cpu")
     xt = convert.params_from_numpy({"x": x}, device="cpu")["x"].reshape(-1, cfg.d_model)
-    gate, idx = moe.route(p, xt, cfg)
+    _, gate, idx = moe.route(p, xt, cfg)
     C = moe.capacity(cfg, xt.shape[0])
     _, sort, pos = moe.dispatch(xt, idx, C, cfg.n_experts)
     return gate.numpy(), idx.numpy(), sort.numpy(), pos.numpy(), C
@@ -183,7 +183,7 @@ def test_moe_dispatch_and_output_match_reference(name, B, same_rows):
     """``idx``, ``sort`` and ``pos`` exactly the reference's, ``y`` within
     ``REL_TOL`` of its largest value (the reference jitted, as its decode
     step runs it: eager, it rounds each op's bf16 result where the
-    compiled step keeps f32).  At B=2, C = 1: tokens that share an
+    compiled step keeps f32), the aux loss within 1e-6.  At B=2, C = 1: tokens that share an
     expert are dropped (every second one when all rows are equal)."""
     jcfg, cfg = _pair(name)
     layer, x = _moe_inputs(jcfg, B, seed=B + same_rows, same_rows=same_rows)
@@ -194,13 +194,15 @@ def test_moe_dispatch_and_output_match_reference(name, B, same_rows):
     assert np.abs(pg - rg).max() <= 1e-6
     if same_rows:
         assert (pp == -1).sum() == B * cfg.experts_per_token // 2
-    want, _ = jax.jit(lambda p, x: ref_moe.moe_apply(p, x, jcfg))(
+    want, want_aux = jax.jit(lambda p, x: ref_moe.moe_apply(p, x, jcfg))(
         jax.tree_util.tree_map(jnp.asarray, layer), jnp.asarray(x))
     want = np.asarray(want).astype(np.float32)
-    got = moe.moe_apply(convert.params_from_numpy(layer, device="cpu"),
-                        convert.params_from_numpy({"x": x}, device="cpu")["x"], cfg)
+    got, aux = moe.moe_apply(convert.params_from_numpy(layer, device="cpu"),
+                             convert.params_from_numpy({"x": x}, device="cpu")["x"], cfg)
     assert got.dtype == torch.bfloat16 and got.shape == (B, 1, cfg.d_model)
     assert np.abs(got.float().numpy() - want).max() <= REL_TOL * np.abs(want).max()
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
 
 
 @pytest.mark.parametrize("name", ARCHS)
