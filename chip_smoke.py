@@ -173,7 +173,34 @@ without printing the final line:
     block's 4,096 window), and its first 4,096 positions held against the
     prefill of those alone (the control's prefix must fail).  Every prefill
     hold runs on the params with the reference's norms, as phase 12's;
-18. report: store sizes, build times, tokens/s, file and checkpoint times,
+18. qwen2_vl_2b whole at its published size (28 layers, d_model 1536, 12
+    heads of 128, 2 KV heads, d_ff 8960, vocab 151,936, QKV bias, M-RoPE
+    sections (16, 24, 24), θ 1e6, untied head; 3,557,788,672 B of bf16):
+    the store built on the card against the host's encode of layer 0
+    (``frontend_proj`` stays static), every leaf of layers 0 and 27
+    decoded, the ring at ``tiles`` 1 and 4 against the plain step with
+    traces; the prefill of ``data.make_batch``'s 512 patches and 1,536
+    text tokens a sequence (B=4) timed and profiled; ``make_prefill`` of 2
+    of the 28 layers (full width, the reference's norms) on the card
+    against the CPU at B=1, S=256 (64 patches, an 8x8 grid) within
+    ``CARD_REL_TOL_FULL``, with plain RoPE (``mrope=False``) as the control
+    that must go over it; K1/K2/K3/K7 at layer 0's ``w_gate`` (1536x8960,
+    105 exponent chunks);
+19. hubert_xlarge whole at its published size (48 layers, d_model 1280, 16
+    heads of 80, d_ff 5120, layernorm, GELU, QKV bias, 32,768 learned
+    positions, a 512-wide audio front end, vocab 504; 3,953,387,520 B of
+    f32): one ``CheckpointManager`` base saved on the card
+    (``CodecOptions(threads=-1, backend="device")``: K3's fp32 variant and
+    K7, launches against the plan from the blobs), layers 0-1 of the
+    stacks saved on the card and on the host with equal bytes,
+    ``restore(device_resident=True)`` (K1's one-shot decode, K2's 4-byte
+    path) bit for bit; the prefill of ``make_batch``'s frames (B=4, S=2,048)
+    from the restored params timed and profiled; 2 of the 48 layers on
+    the card against the CPU at B=1, S=512, with a causal copy of the
+    config as the control; K1/K2/K3/K7 at the 1.26 GB ``w_in`` stack
+    (timed by events only, as every launch over a leaf of 300 MB or more);
+    about 4 GB under ``build/chip_hubert_ckpt``, removed at the end;
+20. report: store sizes, build times, tokens/s, file and checkpoint times,
     each phase's seconds and peak card memory, a prefill summary line, the
     ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
     Each prefill's profiler trace goes to ``build/<label>_prefill_trace.json``.
@@ -232,6 +259,10 @@ LEAF = (3072, 768)               # the largest weight of a repro_gpt_100m layer
 # tests/test_torch_model.py); the card's own bf16-rounding control is
 # checked to read above it.
 LOGIT_REL_TOL = 1e-4
+# Launches over leaves this large are timed by events only: the profiler
+# has dropped some of their device events (K3/K7 at granite's 302 MB
+# ``w_in``, K2/K3 at zamba2's stack) and read them below their bounds.
+PROFILER_MAX_BYTES = 300_000_000
 
 
 def log(msg: str) -> None:
@@ -274,15 +305,19 @@ def kernel_device_ms(prof, kernel: str):
     return sum(us for us, _ in hits) / 1e3, sum(c for us, c in hits if us)
 
 
-def profiled_ms(fn, kernel: str, reps: int):
+def profiled_ms(fn, kernel: str, reps: int, nbytes: int = 0):
     """Mean device time in ms per call of the kernels whose demangled name
     matches the regex ``kernel``, as ``torch.profiler`` (CUPTI) reports
     them, with L2 evicted before each call; None when three profiling
     sessions in a row report no matching device time (a session now and
-    then records none).  Launch latency and host gaps are not in it."""
+    then records none), and None unread for a launch over a leaf of
+    ``nbytes`` >= ``PROFILER_MAX_BYTES`` (the profiler drops events
+    there).  Launch latency and host gaps are not in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if nbytes >= PROFILER_MAX_BYTES:
+        return None
     fn()
     scrub = torch.ones(L2_SCRUB_BYTES, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
@@ -1616,7 +1651,8 @@ def phase_ops_path(dev, cfg, params, news):
     return launches
 
 
-def k1_serial_forms(args, sync_off, n_out, dev, reps, seg_bits=None, chain=True, plain=True):
+def k1_serial_forms(args, sync_off, n_out, dev, reps, seg_bits=None, chain=True, plain=True,
+                    leaf_bytes=0):
     """K1's self-synchronising kernel at one feed's inputs (``args``: its
     ``launch_args()`` without ``out_bytes``, ``sync`` and ``sync_off``), in
     its two forms: the index pass (index and cursors, as a feed's build
@@ -1628,7 +1664,8 @@ def k1_serial_forms(args, sync_off, n_out, dev, reps, seg_bits=None, chain=True,
     timed beside it.  Bounds count each input read once and each output
     written once (the index pass writes no symbol), and one decode of every
     symbol; the synchronisation rounds each chunk took are read from the
-    kernel's counter."""
+    kernel's counter.  ``leaf_bytes`` (the stored leaf's) at or over
+    ``PROFILER_MAX_BYTES`` leaves the device times unread."""
     import torch
 
     from repro_torch.kernels import (
@@ -1651,11 +1688,13 @@ def k1_serial_forms(args, sync_off, n_out, dev, reps, seg_bits=None, chain=True,
     for name in turns:
         t[name].append(device_ms(fns[name], 2 if name.startswith("chain") else reps))
     ms = {k: sum(v) / len(v) for k, v in t.items() if v}
-    dev_ms = {"index": profiled_ms(index, r"huffdecode_selfsync_kernel", reps),
-              "one_shot": profiled_ms(one, r"huffdecode_selfsync_kernel", reps)}
+    dev_ms = {"index": profiled_ms(index, r"huffdecode_selfsync_kernel", reps, leaf_bytes),
+              "one_shot": profiled_ms(one, r"huffdecode_selfsync_kernel", reps, leaf_bytes)}
     if chain:
-        dev_ms["chain_index"] = profiled_ms(chain_index, r"huffdecode_chain_kernel", 1)
-        dev_ms["chain_one_shot"] = profiled_ms(chain_one, r"huffdecode_chain_kernel", 1)
+        dev_ms["chain_index"] = profiled_ms(chain_index, r"huffdecode_chain_kernel", 1,
+                                            leaf_bytes)
+        dev_ms["chain_one_shot"] = profiled_ms(chain_one, r"huffdecode_chain_kernel", 1,
+                                               leaf_bytes)
     rounds = torch.full_like(args["counts"], -1)
     cur_s = huffdecode_serial(**args, out=out_s, seg_bits=seg, rounds=rounds)
     cur_i, sync_i = index()
@@ -2308,20 +2347,23 @@ def profile_prefill(dev, cfg, prefill, params, batch, label):
     return out
 
 
-def time_prefill(dev, cfg, params, B, S, seed, label):
+def time_prefill(dev, cfg, params, B, S, seed, label, batch=None):
     """``make_prefill`` at B x S: the aux loss (and for MoE the dropped
     pairs) from a first, warm-up forward, then one synchronised prefill
     timed on the host clock (tokens/s = B * S over its seconds) with the
     card's peak memory during it, then one under the profiler
-    (``profile_prefill``).  Returns the readings and the card's peak before
-    this (the peak count restarts here)."""
+    (``profile_prefill``).  ``batch`` defaults to random tokens from
+    ``seed`` (the vlm and audio phases pass ``data.make_batch``'s).
+    Returns the readings and the card's peak before this (the peak count
+    restarts here)."""
     import torch
 
     from repro_torch.models import forward
     from repro_torch.serve import make_prefill
 
     phase_peak = torch.cuda.max_memory_allocated(dev)
-    batch = {"tokens": prompt_tokens(dev, cfg, B, S, seed)}
+    if batch is None:
+        batch = {"tokens": prompt_tokens(dev, cfg, B, S, seed)}
     with count_drops() as drops:
         logits, aux = forward(cfg, params, batch)
     if logits.shape != (B, S, cfg.vocab_size) or not torch.isfinite(logits).all():
@@ -3188,6 +3230,329 @@ def phase_zamba2(dev, zcfg):
     return out
 
 
+# The vlm and audio phases: (timed B, timed S) of the prefill from
+# ``data.make_batch``, (hold B, hold S) of the card-vs-CPU hold, and the
+# depth the hold cuts the model to (every width as published)
+FRONT_TIMED = (4, 2048)          # qwen2_vl: 512 patches + 1,536 text tokens
+FRONT_HOLD = {"qwen2_vl": (1, 256), "hubert": (1, 512)}   # qwen2_vl: 64 patches, an 8 x 8 grid
+FRONT_HOLD_LAYERS = 2
+# The card against the CPU on one prefill at full width, the largest gap
+# over the largest logit; each phase's control must go over it.  The
+# reduced models' limit (``tests/test_torch_prefill.py``'s
+# ``CARD_REL_TOL``, 5e-3; readings 1.8e-3 to 4.9e-3) does not hold at
+# full width: on an H100 the card's bf16 products round 0.07-0.29% of
+# their entries to the other neighbour of the exact product (K = 1,280 to
+# 8,960), the CPU's 0.02-0.03%, and one flipped entry of an 8,960-wide
+# hidden row moves all 1,536 sums of its row, so that, given the same
+# inputs, qwen2_vl's SwiGLU output differs on 5.3% of its entries between
+# the two (``python3 -m repro_torch.models.card_cpu_compare``).  Two layers
+# at gains 1 then read 8.76e-3 (qwen2_vl) and 5.48e-3 (hubert) against
+# controls of 0.52 and 0.72.
+CARD_REL_TOL_FULL = 2e-2
+HUBERT_BIG = "params/layers/mlp/w_in"   # (48, 1280, 5120) f32, 1,258,291,200 B
+# (parameters, bytes) of the two models at their published sizes, and the
+# shape of hubert's widest leaf
+PUBLISHED = {"qwen2_vl_2b": (1_778_894_336, 3_557_788_672),
+             "hubert_xlarge": (988_346_880, 3_953_387_520)}
+HUBERT_W_IN = (48, 1280, 5120)
+
+
+def front_batch(cfg, B, S, step, device):
+    """``data.make_batch``'s vlm or audio batch (B x S) on ``device``."""
+    from repro_torch.data import DataConfig, make_batch
+
+    return make_batch(cfg, DataConfig(S, B), step, device=device)
+
+
+def hold_front_prefill(dev, cfg, params, label, control):
+    """``make_prefill`` on the card against the port's prefill on the CPU,
+    both on ``reference_norms`` of ``params`` cut in depth to
+    FRONT_HOLD_LAYERS layers (every width as published), at FRONT_HOLD's
+    ``make_batch`` batch: the largest gap within CARD_REL_TOL_FULL of the
+    largest CPU logit.  The same card run under ``control`` (a copy of the config
+    that computes another function: no M-RoPE, or causal) must go over it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.models.model import reference_norms
+    from repro_torch.serve import make_prefill
+
+    B, S = FRONT_HOLD[label]
+    n = FRONT_HOLD_LAYERS
+    cut = {k: (_util.tree_map(lambda t: t[:n], v) if k == "layers" else v)
+           for k, v in params.items()}
+    card = reference_norms(cut)
+    host = _util.tree_map(lambda t: t.cpu(), card)
+    small, small_ctl = (dataclasses.replace(c, n_layers=n) for c in (cfg, control))
+    batch = front_batch(cfg, B, S, 1, "cpu")
+    cbatch = {k: v.to(dev) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    want = make_prefill(small)(host, batch)
+    t_cpu = time.perf_counter() - t0
+    got = make_prefill(small)(card, cbatch).cpu()
+    ctl = make_prefill(small_ctl)(card, cbatch).cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label} prefill on the card: {tuple(got.shape)} against the "
+                             f"CPU's {tuple(want.shape)}, or not finite")
+    top = float(want.abs().max())
+    row = {"B": B, "S": S, "layers": n, "top_logit": top,
+           "max_gap_rel": float((got - want).abs().max()) / top,
+           "control_max_gap_rel": float((ctl - want).abs().max()) / top,
+           "argmax_equal_share": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+           "cpu_s": t_cpu}
+    del got, ctl, want, host, card
+    log(f"{label} prefill, card against the CPU ({n} of {cfg.n_layers} layers at full width, "
+        f"reference norms; largest gap < {CARD_REL_TOL_FULL} of the largest logit; the control must "
+        f"go over): " + json.dumps(row))
+    if row["control_max_gap_rel"] <= CARD_REL_TOL_FULL:
+        raise AssertionError(f"{label}: the control passes the card-vs-CPU hold: {row}")
+    if row["max_gap_rel"] > CARD_REL_TOL_FULL:
+        raise AssertionError(f"{label} prefill on the card differs from the CPU's: {row}")
+    return row
+
+
+def phase_qwen2_vl(dev, zcfg):
+    """qwen2_vl_2b whole at its published size (28 layers, d_model 1536, 12
+    heads of 128, 2 KV heads, d_ff 8960, vocab 151,936, QKV bias, M-RoPE
+    (16, 24, 24), untied head; 3,557,788,672 B of bf16): the store built on
+    the card against the host's encode of layer 0 (``frontend_proj`` stays
+    static), every leaf of layers 0 and 27 decoded against its param, the
+    ring at each of TILES against the plain step with traces, the prefill
+    of ``make_batch``'s patches and text timed and profiled, held against
+    the CPU at 2 layers with a control (plain RoPE) that must fail, and
+    K1/K2/K3/K7 at layer 0's ``w_gate`` (1536x8960, 105 exponent chunks)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.configs import get_config
+
+    free_card()
+    cfg = get_config("qwen2_vl_2b")
+    t_start = time.perf_counter()
+    params, n_bytes = served_params(dev, cfg, "qwen2_vl_2b")
+    n_params = sum(t.numel() for t in _util.tree_leaves(params))
+    if (n_params, n_bytes) != PUBLISHED["qwen2_vl_2b"] or n_params != cfg.param_count():
+        raise AssertionError(f"qwen2_vl_2b holds {n_params} parameters, {n_bytes} B")
+    store, out = build_served_store(
+        dev, zcfg, cfg, params, "qwen2_vl", lambda key, i, path: i == 0,
+        [("layers", 0), ("layers", cfg.n_layers - 1)])
+    if store.stack_keys != ("layers",) or "frontend_proj" not in store.static:
+        raise AssertionError(f"qwen2_vl store: stacks {store.stack_keys}, static "
+                             f"{sorted(store.static)}")
+    out["plain_bytes_on_card"] = n_bytes
+    run_rings(dev, cfg, store, params, "qwen2_vl", out, SEED + 70)
+    B, S = FRONT_TIMED
+    batch = front_batch(cfg, B, S, 0, dev)
+    if tuple(batch["patches"].shape) != (B, S // 4, cfg.frontend_dim) or tuple(
+            batch["tokens"].shape) != (B, S - S // 4):
+        raise AssertionError(f"qwen2_vl batch {[tuple(v.shape) for v in batch.values()]}")
+    timed, peak = time_prefill(dev, cfg, params, B, S, SEED + 71, "qwen2_vl", batch=batch)
+    del batch
+    control = dataclasses.replace(cfg, mrope=False)
+    out["prefill"] = {"timed": timed, "hold": hold_front_prefill(dev, cfg, params, "qwen2_vl",
+                                                                 control)}
+    out["kernels"] = {"w_gate": measure_leaf_kernels(
+        dev, leaf_feed(store, "layers", 0, "mlp/w_gate"),
+        leaf_of(params, "layers", 0, "mlp/w_gate"), "qwen2_vl w_gate", reps=20)}
+    out["peak_card_bytes"] = max(peak, timed["peak_card_bytes"],
+                                 torch.cuda.max_memory_allocated(dev))
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"qwen2_vl phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
+    return out
+
+
+def phase_hubert(dev, zcfg):
+    """hubert_xlarge whole at its published size (48 layers, d_model 1280,
+    16 heads of 80, d_ff 5120, layernorm, GELU, QKV bias, 32,768 learned
+    positions, a 512-wide audio front end, vocab 504; 3,953,387,520 B of
+    f32), from a ZipNN checkpoint of its f32 params saved and restored on
+    the card: one ``CheckpointManager`` base saved on the card (K3's fp32
+    variant a leaf, K7 as its chunk cap splits each leaf: 2,048 f32 plane
+    chunks a launch, so 3 for each Huffman plane of the 4,800-chunk
+    ``w_in`` stack), layers 0-1 of the
+    stacks saved on the card and on the host writing equal bytes;
+    ``restore(device_resident=True)`` (K1's one-shot decode, K2's 4-byte
+    path) bit for bit; the prefill of ``make_batch``'s frames from the
+    restored params timed and profiled, held against the CPU at 2 layers
+    with a control (causal attention) that must fail; K1/K2/K3/K7 at the
+    1.26 GB ``w_in`` stack.  The checkpoint directory is removed at the
+    end."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import zipnn
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+    from repro_torch.core.options import CodecOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    free_card()
+    cfg = get_config("hubert_xlarge")
+    t_start = time.perf_counter()
+    params, n_bytes = served_params(dev, cfg, "hubert_xlarge")
+    leaves = _util.tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    if (n_params, n_bytes) != PUBLISHED["hubert_xlarge"] or any(
+            t.dtype != torch.float32 for t in leaves):
+        raise AssertionError(f"hubert_xlarge holds {n_params} parameters, {n_bytes} B, dtypes "
+                             f"{sorted({str(t.dtype) for t in leaves})}")
+    big = params["layers"]["mlp"]["w_in"]
+    if tuple(big.shape) != HUBERT_W_IN:
+        raise AssertionError(f"hubert w_in stack {tuple(big.shape)}")
+    out = {"plain_bytes_on_card": n_bytes, "launches": {}}
+    card_opts = CodecOptions(threads=-1, backend="device")
+    work = os.path.join(ROOT, "build", "chip_hubert_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    card_dir = os.path.join(work, "card")
+    try:
+        mgr = CheckpointManager(CheckpointConfig(card_dir, zipnn=zcfg, options=card_opts,
+                                                 device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        mgr.save(0, {"params": params}, blocking=True)
+        torch.cuda.synchronize()
+        out["save_s"] = time.perf_counter() - t0
+        save_launches = launch_counts()
+        out["save_peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del mgr
+        free_card()
+        entries, data = checkpoint_entries(card_dir, 0)
+        flat = _util.tree_flatten_with_keys({"params": params})
+        if sorted(entries) != sorted(k for k, _ in flat):
+            raise AssertionError("hubert checkpoint keys differ from the params'")
+        huff, k7 = {}, {}
+        for key, e in entries.items():
+            blob = read_blob(data, e)
+            huff[key], k7[key] = huff_chunks(blob), k7_launches(blob)
+            del blob
+        save_plan = {"plane_producer": len(entries), "bitpack_encode_chunks": sum(k7.values())}
+        for name, n in save_plan.items():
+            if save_launches[name] != n:
+                raise AssertionError(f"hubert save: {name} {save_launches[name]} launches, "
+                                     f"plan {n}")
+        out["save_launches"] = save_plan
+        add_launches(out["launches"], save_launches)
+        disk = os.path.getsize(data)
+        out["save"] = {"seconds": out["save_s"], "mb_per_s": n_bytes / 1e6 / out["save_s"],
+                       "data_bytes": disk, "ratio_pct": 100 * disk / n_bytes,
+                       "chunks_by_method": chunk_methods(card_dir, 0),
+                       "w_in_huff_chunks": huff[HUBERT_BIG], "w_in_k7_launches": k7[HUBERT_BIG]}
+        log(f"hubert card save of {n_bytes} B of f32 in {out['save_s']:.3f} s "
+            f"({out['save']['mb_per_s']:.1f} MB/s), {disk} B data.bin "
+            f"({out['save']['ratio_pct']:.3f}%), chunks by method "
+            f"{out['save']['chunks_by_method']}; launches equal the plan {save_plan} (the w_in "
+            f"stack: {huff[HUBERT_BIG]} Huffman chunks, {k7[HUBERT_BIG]} K7 launches); card "
+            f"memory at peak {out['save_peak_card_bytes']} B")
+
+        # layers 0-1 of the stacks: the card's save writes the host's bytes
+        small = {"params": {"layers": _util.tree_map(lambda t: t[:2].clone(),
+                                                     params["layers"])}}
+        t0 = time.perf_counter()
+        CheckpointManager(CheckpointConfig(os.path.join(work, "small_card"), zipnn=zcfg,
+                                           options=card_opts, device=dev)).save(
+            0, small, blocking=True)
+        t_small_card = time.perf_counter() - t0
+        small_host = _util.tree_map(lambda t: t.cpu(), small)
+        t0 = time.perf_counter()
+        CheckpointManager(CheckpointConfig(os.path.join(work, "small_host"), zipnn=zcfg,
+                                           threads=-1, backend="host", device="cpu")).save(
+            0, small_host, blocking=True)
+        t_small_host = time.perf_counter() - t0
+        for name in ("manifest.json", "data.bin"):
+            a, b = (os.path.join(work, d, "step_0", name) for d in ("small_card", "small_host"))
+            if not _same_file(a, b):
+                raise AssertionError(f"hubert layers 0-1 {name}: the card's bytes differ from "
+                                     "the host's")
+        small_raw = sum(t.numel() * 4 for t in _util.tree_leaves(small_host))
+        out["small_check"] = {"raw_bytes": small_raw, "card_s": t_small_card,
+                              "host_s": t_small_host}
+        log(f"hubert layers 0-1 of the stacks ({small_raw} B of f32; cut to bound the host's "
+            f"time): the card's save writes the host's bytes ({t_small_card:.3f} s on the card, "
+            f"{t_small_host:.3f} s on the host)")
+        del small, small_host
+
+        # restore on the card, bit for bit
+        mgr = CheckpointManager(CheckpointConfig(card_dir, zipnn=zcfg, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        step, tree = mgr.restore(device_resident=True)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        restore_launches = launch_counts()
+        out["restore_peak_card_bytes"] = torch.cuda.max_memory_allocated(dev)
+        restored = tree["params"]
+        got = _util.tree_flatten_with_keys({"params": restored})
+        if step != 0 or [k for k, _ in got] != [k for k, _ in flat]:
+            raise AssertionError("hubert restore: keys differ from the saved params'")
+        for (k, a), (_, b) in zip(got, flat):
+            if not (a.device == dev and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(bits(a), bits(b))):
+                raise AssertionError(f"hubert restore: {k} differs from the saved leaf")
+        del got, tree, flat
+        sizes: dict = {}
+        for key in sorted(entries):
+            sizes.setdefault(entries[key]["dtype"], []).append(entries[key]["raw"])
+        restore_plan = {"huffdecode_serial": sum(n > 0 for n in huff.values()),
+                        "plane_consumer": sum(k3_windows(g, MAX_BATCH_BYTES)
+                                              for g in sizes.values()),
+                        "huffdecode_chain": 0}
+        for name, n in restore_plan.items():
+            if restore_launches[name] != n:
+                raise AssertionError(f"hubert restore: {name} {restore_launches[name]} "
+                                     f"launches, plan {n}")
+        if restore_launches["huffdecode_chunks"] or restore_launches["huffdecode_index"]:
+            raise AssertionError(f"hubert restore: sync K1 launched {restore_launches}")
+        out["restore_launches"] = restore_plan
+        add_launches(out["launches"], restore_launches)
+        log(f"hubert restore(device_resident=True) in {out['restore_s']:.3f} s "
+            f"({n_bytes / 1e6 / out['restore_s']:.1f} MB/s): every leaf (the "
+            f"{big.numel() * 4}-byte w_in stack included) equals the saved one bit for bit; "
+            f"launches equal the plan {restore_plan}; card memory at peak "
+            f"{out['restore_peak_card_bytes']} B")
+
+        # the prefill from the restored params
+        del params, big
+        free_card()
+        B, S = FRONT_TIMED
+        batch = front_batch(cfg, B, S, 0, dev)
+        timed, peak = time_prefill(dev, cfg, restored, B, S, SEED + 81, "hubert", batch=batch)
+        del batch
+        control = dataclasses.replace(cfg, encoder_only=False)
+        out["prefill"] = {"timed": timed,
+                          "hold": hold_front_prefill(dev, cfg, restored, "hubert", control)}
+
+        # the kernels at the 1.26 GB leaf
+        e = entries[HUBERT_BIG]
+        ct = zipnn.CompressedTensor(read_blob(data, e), e["dtype"], tuple(e["shape"]))
+        feed = zipnn.build_array_feed(ct, zcfg, device=dev)
+        del ct
+        out["kernels"] = {"w_in": measure_leaf_kernels(
+            dev, feed, restored["layers"]["mlp"]["w_in"], "hubert w_in",
+            plain_prefix=DS_PLAIN_PREFIX, reps=3)}
+        del feed, restored, mgr
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["peak_card_bytes"] = max(out.get("save_peak_card_bytes", 0),
+                                 out.get("restore_peak_card_bytes", 0), peak,
+                                 out["prefill"]["timed"]["peak_card_bytes"],
+                                 torch.cuda.max_memory_allocated(dev))
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"hubert phase: {out['phase_s']:.1f} s, peak card memory {out['peak_card_bytes']} B")
+    return out
+
+
 def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     """K1 (sync decode; the self-synchronising kernel's index pass and
     one-shot decode beside the chain baseline, ``k1_serial_forms``), K2, K3
@@ -3196,7 +3561,8 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     version and held against it: K1 over the whole leaf, K2 by the round
     trip of K3's planes to ``x``, K3 and K7 over the whole leaf, or over its
     first ``plain_prefix`` elements where the plain versions' int64 keys
-    would not fit beside the model."""
+    would not fit beside the model.  At a leaf of ``PROFILER_MAX_BYTES`` or
+    more only the events time is read."""
     import torch
 
     from repro_torch.core import huffman
@@ -3208,6 +3574,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     from repro_torch.kernels.fused_plane import ELEM_DTYPES
 
     itemsize = x.element_size()
+    leaf_bytes = x.numel() * itemsize
     chunk = (256 << 10) // itemsize              # plane chunk of the default 256 KiB chunks
     args = feed.launch_args()
     if args is None:
@@ -3217,7 +3584,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     out, out_p = (torch.zeros(n_out, dtype=torch.uint8, device=dev) for _ in range(2))
     run = lambda: huffdecode_chunks(**args, out=out, sync=sync, sync_off=sync_off)  # noqa: E731
     ms = device_ms(run, reps)
-    kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 5)
+    kernel_ms = profiled_ms(run, r"huffdecode_sync_kernel", 5, leaf_bytes)
     plain = []
     plain_ms = device_ms(lambda: plain.append(huffdecode_chunks_plain(
         **args, out=out_p, sync=sync, sync_off=sync_off)), 1)
@@ -3232,7 +3599,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     sync_bytes = sync.numel() * 4 + sync_off.numel() * 8
     k1_bytes = inputs + sync_bytes + symbols + 4 * cur.numel()
     b, by = bound_ms(k1_bytes, K1_OPS_PER_SYMBOL * symbols)
-    forms = k1_serial_forms(args, sync_off, n_out, dev, reps=3)
+    forms = k1_serial_forms(args, sync_off, n_out, dev, reps=3, leaf_bytes=leaf_bytes)
     rows = {"K1": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                    "kernel_ms_profiler": kernel_ms, "chunks": int(args["counts"].numel()),
                    "symbols": symbols, "bytes": k1_bytes, "seg_bits": forms["seg_bits"],
@@ -3250,7 +3617,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     xp = x if plain_prefix is None else x[:plain_prefix]
     k3 = lambda: plane_producer(x, itemsize=itemsize, chunk_elems=chunk)  # noqa: E731
     k3_ms = device_ms(k3, reps)
-    k3_kernel_ms = profiled_ms(k3, r"(?<!un)plane_kernel", 5)
+    k3_kernel_ms = profiled_ms(k3, r"(?<!un)plane_kernel", 5, leaf_bytes)
     k3_plain_ms = device_ms(lambda: plane_producer_plain(xp, itemsize=itemsize,
                                                          chunk_elems=chunk), 1)
     planes, hists = k3()
@@ -3268,7 +3635,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     del planes
     k2 = lambda: plane_consumer(pl, itemsize=itemsize)  # noqa: E731
     k2_ms = device_ms(k2, reps)
-    k2_kernel_ms = profiled_ms(k2, r"unplane_kernel", 5)
+    k2_kernel_ms = profiled_ms(k2, r"unplane_kernel", 5, leaf_bytes)
     pl_p = [q[:m] for q in pl]
     k2_plain_ms = device_ms(lambda: plane_consumer_plain(pl_p, itemsize=itemsize), 1)
     if not (torch.equal(k2(), x) and torch.equal(plane_consumer_plain(pl_p, itemsize=itemsize),
@@ -3289,7 +3656,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     pids = torch.zeros(c, dtype=torch.int32, device=dev)
     k7 = lambda: bitpack_encode_chunks(exp, pids, *tabs, chunk_syms=chunk)  # noqa: E731
     k7_ms = device_ms(k7, reps)
-    k7_kernel_ms = profiled_ms(k7, r"bitpack_kernel", 5)
+    k7_kernel_ms = profiled_ms(k7, r"bitpack_kernel", 5, leaf_bytes)
     k7_plain_ms = device_ms(lambda: bitpack_encode_chunks_plain(
         exp[:m], pids[:cp], *tabs, chunk_syms=chunk), 1)
     words, nbits = k7()
@@ -3382,6 +3749,19 @@ def main() -> int:
         idle = [k for k in need if not ssm[label]["launches"].get(k)]
         if idle:
             raise AssertionError(f"{label}: kernels of the path never launched: {idle}")
+    # this slice's paths: the VLM family (qwen2_vl_2b whole, served by the
+    # ring) and the audio family (hubert_xlarge whole, f32, from a
+    # checkpoint saved and restored on the card)
+    front = {"qwen2_vl": phase_qwen2_vl(dev, zcfg), "hubert": phase_hubert(dev, zcfg)}
+    for label, need in (("qwen2_vl", ["plane_producer", "bitpack_encode_chunks",
+                                      "huffdecode_index", "huffdecode_chunks", "plane_consumer"]),
+                        ("hubert", ["plane_producer", "bitpack_encode_chunks",
+                                    "huffdecode_serial", "plane_consumer"])):
+        idle = [k for k in need if not front[label]["launches"].get(k)]
+        if idle:
+            raise AssertionError(f"{label}: kernels of the path never launched: {idle}")
+        if front[label]["launches"].get("huffdecode_chain"):
+            raise AssertionError(f"{label}: the path launched K1's chain baseline")
     reset_launch_counts()
 
     def moe_rows(k, counter):
@@ -3409,6 +3789,14 @@ def main() -> int:
                     index_pass_launches=launches.get("huffdecode_index", 0),
                     one_shot_launches=launches.get("huffdecode_serial", 0))
 
+    def front_rows(k, counter):
+        """Kernel ``k``'s readings and launches on the vlm and audio paths
+        (qwen2_vl's ``w_gate`` layer leaf, bf16; hubert's ``w_in`` stack,
+        f32)."""
+        return {label: dict({leaf: r[k] for leaf, r in ph["kernels"].items()},
+                            launches=ph["launches"].get(counter, 0))
+                for label, ph in front.items()}
+
     k1_moe = moe_rows("K1", "huffdecode_chunks")
     k1_ssm = ssm_rows("K1", "huffdecode_chunks")
     sf = k1["serial_forms"]
@@ -3429,7 +3817,10 @@ def main() -> int:
          "moe": {label: dict(r, expert=k1_sync(r["expert"]), router=k1_sync(r["router"]))
                  for label, r in k1_moe.items()},
          "ssm": {label: {k: (k1_sync(v) if isinstance(v, dict) else v) for k, v in r.items()}
-                 for label, r in k1_ssm.items()}},
+                 for label, r in k1_ssm.items()},
+         "vlm_audio": {label: {k: (k1_sync(v) if isinstance(v, dict) else v)
+                               for k, v in r.items()}
+                       for label, r in front_rows("K1", "huffdecode_chunks").items()}},
         # The same source's self-synchronising kernel: the main path runs it
         # once a Huffman leaf at the store build (the index pass); the file
         # and checkpoint paths, deltas and the KV tier run its one-shot form.
@@ -3458,7 +3849,10 @@ def main() -> int:
                          for leaf in ("expert", "router")} for label in moe},
          "ssm": {label: {leaf: k1_serial(r["K1"], ssm[label]["launches"])
                          for leaf, r in ssm[label]["kernels"].items() if "K1" in r}
-                 for label in ssm}},
+                 for label in ssm},
+         "vlm_audio": {label: {leaf: k1_serial(r["K1"], front[label]["launches"])
+                               for leaf, r in front[label]["kernels"].items()}
+                       for label in front}},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
@@ -3470,7 +3864,8 @@ def main() -> int:
          "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"],
          "launches_restore_then_prefill": ckpt["prefill_launches"]["plane_consumer"],
          "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN),
-         "moe": moe_rows("K2", "plane_consumer"), "ssm": ssm_rows("K2", "plane_consumer")},
+         "moe": moe_rows("K2", "plane_consumer"), "ssm": ssm_rows("K2", "plane_consumer"),
+         "vlm_audio": front_rows("K2", "plane_consumer")},
         {"name": "plane_producer", "route": "cuda",
          "source": "src/repro_torch/csrc/plane.cu",
          "replaces": "src/repro/kernels/fused_plane.py:52",
@@ -3482,7 +3877,8 @@ def main() -> int:
          "launches_file": files["launches"]["plane_producer"],
          "launches_checkpoint_save": ckpt["save_launches"]["plane_producer"],
          "granite": dict(gk["K3"], launches=gl["plane_producer"], shape=W_IN),
-         "moe": moe_rows("K3", "plane_producer"), "ssm": ssm_rows("K3", "plane_producer")},
+         "moe": moe_rows("K3", "plane_producer"), "ssm": ssm_rows("K3", "plane_producer"),
+         "vlm_audio": front_rows("K3", "plane_producer")},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",
@@ -3494,7 +3890,8 @@ def main() -> int:
          "launches_checkpoint_save": ckpt["save_launches"]["bitpack_encode_chunks"],
          "granite": dict(gk["K7"], launches=gl["bitpack_encode_chunks"], shape=W_IN),
          "moe": moe_rows("K7", "bitpack_encode_chunks"),
-         "ssm": ssm_rows("K7", "bitpack_encode_chunks")},
+         "ssm": ssm_rows("K7", "bitpack_encode_chunks"),
+         "vlm_audio": front_rows("K7", "bitpack_encode_chunks")},
     ]
     # The ops kernels: launches are those of the ops path over the 108
     # leaves; times from measure_ops (K4/K11 list both widths, K5 both
@@ -3531,12 +3928,12 @@ def main() -> int:
         if len(replaces) > 1:
             entry["replaces_also"] = [f"src/repro/kernels/{r}" for r in replaces[1:]]
         kernels.append(entry)
-    for label, ph in list(moe.items()) + list(ssm.items()):
+    for label, ph in list(moe.items()) + list(ssm.items()) + list(front.items()):
         log(f"{label} summary: " + json.dumps({k: v for k, v in ph.items()
                                                if k not in ("kernels", "trace", "prefill")}))
     prefills = dict({"repro_gpt_100m": ckpt["prefill"], "granite": granite["prefill"]},
                     **{label: ph["prefill"] for label, ph in list(moe.items())
-                       + list(ssm.items())})
+                       + list(ssm.items()) + list(front.items())})
     log("prefill summary (tokens/s, card peak bytes, device ms by kind, idle share): "
         + json.dumps({label: {"B": p["timed"]["B"], "S": p["timed"]["S"],
                               "tokens_per_s": p["timed"]["tokens_per_s"],
@@ -3544,7 +3941,9 @@ def main() -> int:
                               "device_ms": p["timed"]["profile"]["device_ms"],
                               "idle": p["timed"]["profile"]["idle"],
                               "hold_max_gap_rel": p["hold"]["max_gap_rel"],
-                              "control_max_gap_rel": p["hold"]["control"]["max_gap_rel"]}
+                              "control_max_gap_rel": (p["hold"]["control"]["max_gap_rel"]
+                                                      if "control" in p["hold"] else
+                                                      p["hold"]["control_max_gap_rel"])}
                       for label, p in prefills.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

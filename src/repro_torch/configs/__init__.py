@@ -1,5 +1,5 @@
 """Architecture configs: one module per architecture + registry."""
 
-from .base import ModelConfig, get_config
+from .base import ModelConfig, get_config, list_archs, SHAPES, shape_cells
 
-__all__ = ["ModelConfig", "get_config"]
+__all__ = ["ModelConfig", "get_config", "list_archs", "SHAPES", "shape_cells"]

@@ -1,16 +1,18 @@
-"""ModelConfig dataclass and the architecture registry.
+"""ModelConfig dataclass, the architecture registry and the shape cells.
 
 Field for field the reference's ``repro.configs.base.ModelConfig``, so a
 config module registers the same published numbers in both packages;
 ``dtype`` is a ``torch.dtype``.  ``reduced()`` derives the
-family-preserving small config the CPU tests use.
+family-preserving small config the CPU tests use.  ``param_count`` /
+``active_param_count`` count the port's own ``param_shapes`` (the
+reference counts its ``Model.abstract_params()``: the same tree).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -111,6 +113,17 @@ class ModelConfig:
     def has_decode(self) -> bool:
         return not self.encoder_only
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + layers), for 6·N·D."""
+        from ..models.model import count_params_analytic
+
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from ..models.model import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
+
     def reduced(self) -> "ModelConfig":
         """Family-preserving tiny config for CPU smoke tests (the same
         numbers as the reference's ``reduced()``)."""
@@ -146,6 +159,39 @@ class ModelConfig:
         )
 
 
+# ---------------------------------------------------------------------------
+# Shape cells (assigned): seq_len × global_batch per kind
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524_288, 1),
+}
+
+
+ARCHS = [
+    "h2o_danube3_4b",
+    "granite_20b",
+    "yi_6b",
+    "qwen15_4b",
+    "qwen2_vl_2b",
+    "olmoe_1b_7b",
+    "deepseek_v2_236b",
+    "mamba2_130m",
+    "hubert_xlarge",
+    "zamba2_7b",
+]
+
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 
@@ -159,3 +205,19 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         importlib.import_module(f"repro_torch.configs.{name}")
     return _REGISTRY[name]
+
+
+def list_archs() -> List[str]:
+    return list(ARCHS)
+
+
+def shape_cells(cfg: ModelConfig) -> List[ShapeCell]:
+    """The cells an arch runs: train and prefill for every arch, decode
+    where it has a decode path, and the long cell where it is also
+    sub-quadratic."""
+    cells = [SHAPES["train_4k"], SHAPES["prefill_32k"]]
+    if cfg.has_decode:
+        cells.append(SHAPES["decode_32k"])
+        if cfg.subquadratic:
+            cells.append(SHAPES["long_500k"])
+    return cells

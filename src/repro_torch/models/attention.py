@@ -47,15 +47,19 @@ def _bf16_scale(hd: int) -> float:
 
 def _qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor, pos_thw=None):
     """q (B, S, H, hd), k and v (B, S, G, hd): the projections (with their
-    biases where the config has them) and RoPE at ``positions`` (B, S)."""
-    if pos_thw is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE (pos_thw) is not ported yet")
+    biases where the config has them), then M-RoPE at ``pos_thw`` (B, S, 3)
+    where the config has M-RoPE and one is given, else RoPE at
+    ``positions`` (B, S) where the config uses it (a ``pos_thw`` given to
+    a config without M-RoPE is ignored, as in the reference)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = layers.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = layers.dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = layers.dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    if cfg.use_rope:
+    if cfg.mrope and pos_thw is not None:
+        q = layers.apply_mrope(q, pos_thw, cfg.rope_theta, cfg.mrope_sections)
+        k = layers.apply_mrope(k, pos_thw, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

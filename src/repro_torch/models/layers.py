@@ -1,4 +1,5 @@
-"""Shared primitive layers: norms, projections, RoPE, MLPs, embeddings.
+"""Shared primitive layers: norms, projections, RoPE and M-RoPE, MLPs,
+embeddings.
 
 Params are plain nested dicts of tensors in the reference's layout
 (``{"w": (d_in, d_out)}`` dense weights).  Compute dtype is bf16, with
@@ -10,6 +11,8 @@ operands to f32 (exact) and multiplies in f32.
 
 from __future__ import annotations
 
+import bisect
+import itertools
 import math
 
 import torch
@@ -20,6 +23,8 @@ __all__ = [
     "layernorm",
     "rope_freqs",
     "apply_rope",
+    "mrope_section_ids",
+    "apply_mrope",
     "silu_bf16",
     "swiglu",
     "gelu_tanh_bf16",
@@ -61,6 +66,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
     angles = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_section_ids(sections, n: int) -> list:
+    """Which of (t, h, w) drives each of the ``n`` frequency pairs:
+    ``jnp.repeat(arange(3), sections, total_repeat_length=n)``, which
+    starts section ``i`` at the sum of the sections before it and fills
+    each pair with the last section started at or before it.  So sections
+    that sum to more than ``n`` are cut short, and where they sum to less
+    the last id runs on to the end: (16, 24, 24) at ``n = 16`` is all 0,
+    (2, 3, 3) is ``[0, 0, 1, 1, 1, 2, ..., 2]``."""
+    starts = list(itertools.accumulate((int(r) for r in sections[:-1]), initial=0))
+    return [bisect.bisect_right(starts, i) - 1 for i in range(n)]
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL §2.1): each frequency pair rotates by the t, h or
+    w position ``mrope_section_ids`` assigns it.  x: (B, S, H, hd);
+    positions_thw: (B, S, 3).  With t = h = w = p it is ``apply_rope(x,
+    p)`` bit for bit (the same angles)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
+    sec = torch.tensor(mrope_section_ids(sections, hd // 2), device=x.device)
+    idx = sec.expand(*positions_thw.shape[:-1], hd // 2)
+    pos = torch.gather(positions_thw.to(torch.float32), -1, idx)   # (B, S, hd/2)
+    angles = pos * freqs
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,5 +1,5 @@
 """The full-sequence forward, the decode state and the one-token decode
-step for the dense, MoE, SSM and hybrid families.
+step for the dense, MoE, SSM, hybrid, vlm and audio families.
 
 A port of ``repro.models.model``'s ``forward`` / ``_trunk`` /
 ``_scan_stack`` / ``_hybrid_forward``, ``init_decode_state``,
@@ -14,11 +14,16 @@ The SSM family's layers return their new recurrent state and conv
 history, which stack into the new state.  The hybrid family runs each of
 its ``mamba_groups`` and then the one ``shared_attn`` block with that
 group's KV cache, then the ``mamba_tail``; the KV slot write happens once
-after the groups, as in the reference's scanned step.
+after the groups, as in the reference's scanned step.  The vlm family is
+the dense decoder behind a vision front end (``frontend_proj`` of
+precomputed patch embeddings, M-RoPE over ``pos_thw`` in the forward; its
+decode is the dense decode); the audio family is an encoder-only dense
+stack behind an audio front end, with a forward and no decode.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -34,6 +39,7 @@ __all__ = [
     "write_caches",
     "param_shapes",
     "param_dtypes",
+    "count_params_analytic",
     "init_params",
     "reference_norms",
     "cache_len",
@@ -53,24 +59,28 @@ def block_fn(kind: str) -> Callable:
             "ssm": blocks.mamba_block_decode}[kind]
 
 
-def _check_ported(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet"
-        )
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _check_family(cfg) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
+
+
+def _check_decode(cfg) -> None:
+    """The decode entry points' check: an encoder-only config has no
+    decode state (the reference's ``init_decode_state`` refusal)."""
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only: no decode state")
-    _check_ported(cfg)
+    _check_family(cfg)
 
 
 def layer_plan(cfg) -> List[Tuple[str, int, str]]:
     """[(stack_key, layer_index, block_kind)] in decode order, for the
     families whose layers are one stack each after another (the hybrid
-    family's shared block repeats across groups: it has no such plan)."""
-    _check_family(cfg)
+    family's shared block repeats across groups: it has no such plan).
+    The vlm family's layers are dense; an encoder-only config raises."""
+    _check_decode(cfg)
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid family's shared attention block repeats "
@@ -108,7 +118,11 @@ def param_shapes(cfg) -> Dict[str, Any]:
     them, MLP width ``dense_d_ff``) and ``moe_layers`` for the MoE family,
     ``mamba_groups`` (leading axes: group, layer of the group),
     ``shared_attn`` (one dense block) and ``mamba_tail`` (when
-    ``n_layers`` is not a whole number of groups) for the hybrid family."""
+    ``n_layers`` is not a whole number of groups) for the hybrid family;
+    the vlm and audio families are a dense ``layers`` stack behind
+    ``frontend_proj`` (``{"w": (frontend_dim, d_model)}``, no bias).
+    Every family and any ``encoder_only`` draw, as the reference's
+    ``Model.init`` does."""
     _check_family(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -180,6 +194,10 @@ def param_shapes(cfg) -> Dict[str, Any]:
         return p
 
     shapes: Dict[str, Any] = {"embed": {"table": (cfg.vocab_size, d)}}
+    if cfg.pos_embedding == "learned":
+        shapes["pos"] = {"table": (cfg.max_position, d)}
+    if cfg.frontend != "none":
+        shapes["frontend_proj"] = dense((), cfg.frontend_dim, d)
     if cfg.family == "moe":
         fk = cfg.first_k_dense
         if fk:
@@ -196,8 +214,6 @@ def param_shapes(cfg) -> Dict[str, Any]:
     else:
         shapes["layers"] = block((cfg.n_layers,), cfg.d_ff)
     shapes["final_norm"] = norm(())
-    if cfg.pos_embedding == "learned":
-        shapes["pos"] = {"table": (cfg.max_position, d)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = {"table": (cfg.vocab_size, d)}
     return shapes
@@ -216,6 +232,23 @@ def param_dtypes(cfg) -> Dict[str, Any]:
         return torch.float32 if f32 else cfg.dtype
 
     return walk(param_shapes(cfg), ())
+
+
+def count_params_analytic(cfg, active_only: bool = False) -> int:
+    """The parameter count of :func:`param_shapes`' tree, the reference's
+    ``count_params_analytic``: with ``active_only`` each leaf under
+    ``experts/`` counts ``experts_per_token / n_experts`` of its size
+    (integer division a leaf, as the reference's)."""
+
+    def walk(node, path):
+        if isinstance(node, dict):               # shape tuples are the leaves
+            return sum(walk(v, path + k + "/") for k, v in node.items())
+        n = math.prod(node)
+        if active_only and "experts/" in path and cfg.n_experts:
+            n = n * cfg.experts_per_token // cfg.n_experts
+        return n
+
+    return walk(param_shapes(cfg), "")
 
 
 def init_params(cfg, seed: int = 0, *, device: Any = "cuda") -> Dict[str, Any]:
@@ -271,9 +304,10 @@ def init_decode_state(
     """Decode state with a cache sized for ``seq_len``.
 
     ``start_pos`` defaults to ``seq_len`` (a full context already
-    processed); pass 0 to generate from scratch.
+    processed); pass 0 to generate from scratch.  The vlm family's state
+    is the dense one; an encoder-only config raises ``ValueError``.
     """
-    _check_family(cfg)
+    _check_decode(cfg)
     dev = _util.resolve_device(device)
     L = cache_len(cfg, seq_len)
     sp = seq_len if start_pos is None else start_pos
@@ -318,14 +352,17 @@ def _scan_stack(stack, x: torch.Tensor, apply_fn) -> Tuple[torch.Tensor, torch.T
 
 
 def forward(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: ``batch["tokens"]`` (B, S) → (f32 logits
-    (B, S, vocab), aux loss f32 scalar).
+    """Full-sequence forward: the batch → (f32 logits (B, S, vocab), aux
+    loss f32 scalar).
 
-    Runs on the device of its params; params and tokens on more than one
-    device raise.  The vlm and audio families (front ends, M-RoPE) are not
-    ported yet and raise ``NotImplementedError``.
+    The batch is ``{"tokens": (B, S) int32}``; for the vlm family
+    ``{"patches": (B, S_img, frontend_dim), "tokens": (B, S_txt),
+    "pos_thw": (B, S_img + S_txt, 3)}`` (S = S_img + S_txt rows, the
+    patches first); for the audio family ``{"frames": (B, S,
+    frontend_dim)}``; other keys (``labels``) are not read.  Runs on the
+    device of its params; params and batch on more than one device raise.
     """
-    _check_ported(cfg)
+    _check_family(cfg)
     _check_one_device(params, batch)
     x, aux = _trunk(cfg, params, batch)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -333,15 +370,27 @@ def forward(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, 
 
 
 def _trunk(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Everything up to and including the final norm: (x, aux)."""
-    x = layers.embed(params["embed"], batch["tokens"])
+    """Everything up to and including the final norm: (x, aux).  The vlm
+    front end projects the patches (bf16) ahead of the token embeddings
+    and hands ``pos_thw`` to every dense block (M-RoPE); the audio front
+    end projects the frames."""
+    pos_thw = None
+    if cfg.family == "vlm":
+        img = layers.dense(params["frontend_proj"], batch["patches"])
+        txt = layers.embed(params["embed"], batch["tokens"])
+        x = torch.cat([img.to(torch.bfloat16), txt], dim=1)
+        pos_thw = batch["pos_thw"]
+    elif cfg.family == "audio":
+        x = layers.dense(params["frontend_proj"], batch["frames"])
+    else:
+        x = layers.embed(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     if cfg.pos_embedding == "learned":
         x = x + params["pos"]["table"][:S][None].to(x.dtype)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         x, aux = _scan_stack(params["layers"], x, lambda lp, h: blocks.dense_block_train(
-            lp, h, cfg, positions))
+            lp, h, cfg, positions, pos_thw))
     elif cfg.family == "moe":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if "dense_layers" in params:

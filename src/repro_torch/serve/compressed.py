@@ -8,7 +8,8 @@ the build encodes on the store's device: K3 planes each layer's
 card-resident leaves in place (one launch per layer and dtype) and K7
 packs their Huffman chunks, so no leaf goes to the host as raw values;
 the payloads are byte-identical to a host build.  Non-stacked params — embed, final
-norm, lm head — are the ``static`` residue: touched every token, they
+norm, lm head, learned positions, a front end's ``frontend_proj`` — are
+the ``static`` residue: touched every token, they
 stay uncompressed on the store's device.
 
 ``decode_layer`` restores one layer on the store's device.  With

@@ -35,7 +35,8 @@ __all__ = [
 
 def make_prefill(cfg) -> Callable:
     """prefill(params, batch) → f32 logits (B, S, vocab) for the whole
-    prompt ``batch["tokens"]`` (B, S): one :func:`~repro_torch.models.
+    prompt ``batch["tokens"]`` (B, S) (vlm: the patches, tokens and
+    ``pos_thw``; audio: the frames): one :func:`~repro_torch.models.
     forward` (blockwise attention, chunked SSD), on the params' device."""
 
     def prefill(params, batch):
@@ -55,14 +56,10 @@ def make_serve_step(cfg) -> Callable:
 
 
 def _check_served(cfg) -> None:
-    """The reference's rejection (no decode path), then the port's: the
-    family not ported yet (vlm)."""
+    """The reference's rejection: an encoder-only family (audio) has no
+    decode path.  The vlm family serves as the dense one."""
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} has no decode path")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to the serving steps yet"
-        )
 
 
 def make_kv_tiered_serve_step(cfg, params, kv_store) -> Callable:

@@ -231,13 +231,34 @@ def test_qkv_and_gqa_train_match_reference(name):
 
 
 def test_mrope_positions_raise():
-    _, cfg = _pair("repro_gpt_100m")
-    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    p = convert.params_from_numpy(_layer(_pair("repro_gpt_100m")[0], "layers", ("attn",)),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        attention.gqa_train(p, x, cfg, torch.zeros((1, 4), dtype=torch.int32),
-                            pos_thw=torch.zeros((1, 4, 3), dtype=torch.int32))
+    """M-RoPE over ``pos_thw`` (reduced qwen2_vl with sections (4, 6, 6), so
+    the h and w sections act at ``hd`` 32): q, k, v and the attention
+    output within the bf16 rule, as the RoPE cases above; a ``pos_thw``
+    given to a config without M-RoPE is ignored, as in the reference."""
+    jcfg, cfg = (dataclasses.replace(c, mrope_sections=(4, 6, 6))
+                 for c in _pair("qwen2_vl_2b"))
+    p = _layer(jcfg, "layers", ("attn",), seed=7)
+    B, S = 2, 100
+    x = (np.random.default_rng(8).standard_normal((B, S, cfg.d_model))).astype(BF16)
+    pos = _positions(B, S)
+    rng = np.random.default_rng(9)
+    thw = np.stack([np.zeros((B, S)), rng.integers(0, 12, (B, S)),
+                    rng.integers(0, 12, (B, S))], -1).astype(np.int32)
+    tp = convert.params_from_numpy(p, device="cpu")
+    want = jax.jit(lambda p, x: ref_attention._qkv(p, x, jcfg, jnp.asarray(pos), thw))(p, x)
+    got = attention._qkv(tp, _t(x), cfg, torch.from_numpy(pos), torch.from_numpy(thw))
+    for w, g in zip(want, got):
+        _bf16_close(w, g, ATTN_SHARE)
+    want = jax.jit(lambda p, x: ref_attention.gqa_train(p, x, jcfg, jnp.asarray(pos), thw))(p, x)
+    got = attention.gqa_train(tp, _t(x), cfg, torch.from_numpy(pos), torch.from_numpy(thw))
+    _bf16_close(want, got, ROW_SHARE)
+    gcfg = _pair("repro_gpt_100m")[1]
+    gp = convert.params_from_numpy(_layer(_pair("repro_gpt_100m")[0], "layers", ("attn",)),
+                                   device="cpu")
+    xg = _t(x)[..., :gcfg.d_model]
+    assert torch.equal(attention.gqa_train(gp, xg, gcfg, torch.from_numpy(pos),
+                                           pos_thw=torch.from_numpy(thw)),
+                       attention.gqa_train(gp, xg, gcfg, torch.from_numpy(pos)))
 
 
 @pytest.mark.parametrize("key", ["dense_layers", "moe_layers"])

@@ -1,7 +1,8 @@
 """The serving paths of the MoE family at ``reduced()`` size: the store's
 stack keys against the reference's, the compressed ring and the MLA KV
-tier against the port's own plain step, the serving entry point, the
-family still to port and the rejections the port keeps from the reference.
+tier against the port's own plain step, the serving entry point, the vlm
+family's entry points and the rejections the port keeps from the
+reference.
 
 * Store: ``CompressedParamStore.from_params`` on the same seeded params
   in both packages gives the same stack keys, the same static keys,
@@ -233,30 +234,54 @@ def _port_config(ref_name):
     ("mamba2_130m", "ssm"), ("zamba2_7b", "hybrid"), ("qwen2_vl_2b", "vlm"),
 ])
 def test_unported_families_raise(ref_name, family):
-    """vlm is not ported: every entry point raises.  ssm and hybrid decode
-    in the port; what they still raise is what the reference raises: the
-    KV tier for both, and the compressed ring for hybrid (its shared
-    attention repeats across groups)."""
+    """vlm is ported: its four entry points (the param tree, the decode
+    state, the compressed ring and the KV tier) run with the reference's
+    shapes.  ssm and hybrid decode in the port; what they still raise is
+    what the reference raises: the KV tier for both, and the compressed
+    ring for hybrid (its shared attention repeats across groups)."""
     cfg = _port_config(ref_name)
     assert cfg.family == family
+    if family == "vlm":
+        model = build_model(ref_get_config(ref_name).reduced())
+        shapes = {"/".join(str(getattr(k, "key", k)) for k in path): tuple(leaf.shape)
+                  for path, leaf in jax.tree_util.tree_flatten_with_path(
+                      model.abstract_params())[0]}
+        got = {}
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, path + (k,))
+                else:
+                    got["/".join(path + (k,))] = tuple(v)
+
+        walk(param_shapes(cfg), ())
+        assert got == shapes and got["frontend_proj/w"] == (cfg.frontend_dim, cfg.d_model)
+        ref_state = jax.eval_shape(lambda: model.init_decode_state(2, 4, start_pos=0))
+        state = init_decode_state(cfg, 2, 4, start_pos=0, device="cpu")
+        want = {k: tuple(v.shape) for k, v in ref_state.items()}
+        assert {k: tuple(v.shape) for k, v in state.items()} == want
+        params = init_params(cfg, 0, device="cpu")
+        store = CompressedParamStore.from_params(params, HUFF, device="cpu")
+        tok = torch.zeros((2, 1), dtype=torch.int32)
+        logits, new = make_compressed_serve_step(cfg, store)(state, tok)
+        assert logits.shape == (2, 1, cfg.vocab_size)
+        assert {k: tuple(v.shape) for k, v in new.items()} == want
+        kv = KVCacheStore(init_decode_state(cfg, 2, 4, start_pos=0, device="cpu"))
+        assert torch.equal(make_kv_tiered_serve_step(cfg, params, kv)(tok), logits)
+        return
     olmoe = get_config("olmoe_1b_7b").reduced()
     store = CompressedParamStore.from_params(init_params(olmoe, 0, device="cpu"), HUFF,
                                              device="cpu")
     kv = KVCacheStore(init_decode_state(olmoe, 2, 4, start_pos=0, device="cpu"))
-    if family == "vlm":
-        calls = [(lambda: param_shapes(cfg), family),
-                 (lambda: init_decode_state(cfg, 2, 4, device="cpu"), family),
-                 (lambda: make_compressed_serve_step(cfg, store), family),
-                 (lambda: make_kv_tiered_serve_step(cfg, {}, kv), family)]
+    assert param_shapes(cfg) and "ssm_state" in init_decode_state(cfg, 2, 4, device="cpu")
+    calls = [(lambda: make_kv_tiered_serve_step(cfg, {}, kv), "attention-cache length axis")]
+    if family == "hybrid":
+        calls.append((lambda: make_compressed_serve_step(cfg, store),
+                      "shared_attn params repeat per group"))
     else:
-        assert param_shapes(cfg) and "ssm_state" in init_decode_state(cfg, 2, 4, device="cpu")
-        calls = [(lambda: make_kv_tiered_serve_step(cfg, {}, kv), "attention-cache length axis")]
-        if family == "hybrid":
-            calls.append((lambda: make_compressed_serve_step(cfg, store),
-                          "shared_attn params repeat per group"))
-        else:
-            calls.append((lambda: make_compressed_serve_step(cfg, store, kv_store=kv),
-                          "ssm state has no cache-length axis"))
+        calls.append((lambda: make_compressed_serve_step(cfg, store, kv_store=kv),
+                      "ssm state has no cache-length axis"))
     for call, match in calls:
         with pytest.raises(NotImplementedError, match=match):
             call()

@@ -50,6 +50,7 @@ has no JAX, and there only the ``gpu`` test runs.
 """
 
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -262,14 +263,45 @@ def test_reference_norms_sets_the_norms_and_shares_the_rest(name):
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_vlm_and_audio_raise(family):
-    cfg = dataclasses.replace(get_config("repro_gpt_100m").reduced(), family=family,
-                              encoder_only=family == "audio")
-    params = init_params(get_config("repro_gpt_100m").reduced(), 0, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=family):
-        forward(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match=family):
-        make_prefill(cfg)(params, batch)
+    """The vlm and audio prefills, reduced ``qwen2_vl_2b`` (patches, then
+    text, under M-RoPE) and ``hubert_xlarge`` (frames, non-causal, f32
+    params), against the jitted reference ``forward`` on the same params and
+    the same ``data.make_batch`` batches of steps 0-3 (drawn by each
+    package with ``hash(cfg.name)`` pinned: Python salts it per process),
+    at this file's limits over the four batches' rows."""
+    if jax is None:
+        pytest.skip("needs JAX for the reference")
+    from repro.data import pipeline as ref_pipeline
+    from repro_torch.data import DataConfig, make_batch, pipeline
+
+    name = {"vlm": "qwen2_vl_2b", "audio": "hubert_xlarge"}[family]
+    jcfg, cfg = _configs(name)
+    assert cfg.family == family
+    model = build_model(jcfg)
+    leaves, treedef = jax.tree_util.tree_flatten(model.abstract_params())
+    rng = np.random.default_rng(0)
+    nptree = jax.tree_util.tree_unflatten(treedef, [
+        (rng.standard_normal(l.shape) * 0.02).astype(np.dtype(l.dtype)) for l in leaves])
+    params = convert.params_from_numpy(nptree, device="cpu")
+    jparams = jax.tree_util.tree_map(jnp.asarray, nptree)
+    jfwd, prefill = jax.jit(model.forward), make_prefill(cfg)
+    gaps = []
+    for step in range(4):
+        for m in (pipeline, ref_pipeline):
+            m.hash = lambda s: zlib.crc32(s.encode())
+        try:
+            jbatch = ref_pipeline.make_batch(jcfg, ref_pipeline.DataConfig(S, B), step)
+            batch = make_batch(cfg, DataConfig(S, B), step, device="cpu")
+        finally:
+            for m in (pipeline, ref_pipeline):
+                del m.hash
+        want = np.asarray(jfwd(jparams, jbatch)[0])
+        got = prefill(params, batch)
+        assert got.dtype == torch.float32 and got.shape == want.shape == (B, S, cfg.vocab_size)
+        gaps.append(np.abs(want - got.numpy()).max(-1) / np.abs(want).max())
+    gaps = np.concatenate(gaps)
+    assert gaps.max() <= FLIP_TOL, gaps.max()
+    assert (gaps > REL_TOL).mean() <= POS_SHARE, (gaps > REL_TOL).mean()
 
 
 def test_forward_raises_on_a_device_mix():
