@@ -200,15 +200,45 @@ without printing the final line:
     config as the control; K1/K2/K3/K7 at the 1.26 GB ``w_in`` stack
     (timed by events only, as every launch over a leaf of 300 MB or more);
     about 4 GB under ``build/chip_hubert_ckpt``, removed at the end;
-20. report: store sizes, build times, tokens/s, file and checkpoint times,
-    each phase's seconds and peak card memory, a prefill summary line, the
-    ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
-    Each prefill's profiler trace goes to ``build/<label>_prefill_trace.json``.
+20. train: repro_gpt_100m whole at its published size trained through
+    ``repro_torch.launch.train.main`` on the card (B=8 x S=2,048, past
+    ``q_block`` 512 and ``kv_block`` 1,024, so both loops of the flash
+    backward run several blocks; 12 steps at lr 1e-3; ZipNN checkpoints
+    saved on the card every 4 steps with ``--base-every 2``: a base, a
+    delta with the moments chained against the previous save, a base; K3
+    and K7 launches of each save against the plan from its blobs); the
+    loss at step 1 within 0.5-2.5 x ln(vocab) and falling; the step-12
+    checkpoint restored on the card (K1's one-shot decode, K2) equal to the
+    trained state bit for bit; 4 more steps of the in-memory state (the
+    uninterrupted run: tokens/s, peak card memory beside the state resident
+    before the step, one step under ``torch.profiler`` split into matmuls,
+    flash forward, flash backward, fused CE, optimizer and the rest); a
+    second ``main`` on the same directory to step 16 resumes at 12 and its
+    losses must equal the uninterrupted run's (within 1e-6, bit-identity
+    recorded); ``GradSync`` of one step's gradients packed on the card and
+    unpacked back onto it bit for bit (launches against the plan), layers
+    0-1 against the host's blobs; one step of repro_gpt_100m cut to 2
+    layers on the card against the CPU (B=1 x 256, every gradient leaf
+    within ``CARD_GRAD_REL``; attention without its causal mask as the
+    control that must go over it); one step of olmoe_1b_7b at its published
+    widths cut to 2 of 16 layers (~1.05 B parameters; B=4 x 2,048, the
+    fused CE at vocab 50,304, capacity factor 1.25: two runs' gradients
+    bit-identical and finite, then the AdamW update).  Both ``main`` calls
+    run in one process, since ``data.make_batch`` seeds with
+    ``hash(cfg.name)``; ~1.6 GB a save under ``build/chip_train_ckpt``,
+    removed at the end;
+21. report: store sizes, build times, tokens/s, file and checkpoint times,
+    each phase's seconds and peak card memory, a prefill summary line, a
+    train summary line, the ``kernels`` JSON line, and last ``{"ok": true,
+    "device": {...}}``.  Each prefill's profiler trace goes to
+    ``build/<label>_prefill_trace.json``, the train step's to
+    ``build/train_step_trace.json``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2276,47 +2306,35 @@ def hold_prefill(cfg, params, tokens, label, held=True):
     return row
 
 
-def profile_prefill(dev, cfg, prefill, params, batch, label):
-    """One ``torch.profiler`` session over one prefill (ended by a
-    synchronize): device time by kind (matmuls outside the ranges below,
-    the flash loop's ops, the SSD scan, the MoE dispatch and combine, the
-    rest) and the card's idle share of the call's wall time.  A kernel
-    belongs to the range its launch was enqueued in.  Raises where a range
-    that ``cfg``'s family runs holds no device time (``prefill_ranges``
-    rebinds the model's functions, so a call that no longer goes through
-    them shows here).  The trace goes to build/<label>_prefill_trace.json."""
+def trace_split(prof, name, kinds, call_name, label):
+    """Device time of one profiled call by kind, from its trace (written to
+    build/``name``): each kernel goes to the ``record_function`` range of
+    ``kinds`` its launch was enqueued in, else to "matmuls" (a GEMM kernel)
+    or "rest"; and the card's idle share of the ``call_name`` range's wall
+    time."""
     import bisect
     import re
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    torch.cuda.synchronize()
-    with prefill_ranges(), profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA]) as prof:
-        with record_function("prefill_call"):
-            prefill(params, batch)
-            torch.cuda.synchronize()
-    path = os.path.join(ROOT, "build", f"{label}_prefill_trace.json")
+    path = os.path.join(ROOT, "build", name)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                   and e.get("name") in PREFILL_KINDS)
+                   and e.get("name") in kinds)
     call = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-            and e.get("name") == "prefill_call"]
+            and e.get("name") == call_name]
     launch = {e["args"]["correlation"]: e["ts"] for e in events
               if e.get("cat") in ("cuda_runtime", "cuda_driver")
               and "correlation" in e.get("args", {})}
     dev_ev = [e for e in events if e.get("ph") == "X"
               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if len(call) != 1 or not dev_ev:
-        raise AssertionError(f"{label} prefill trace: {len(call)} call spans, "
+        raise AssertionError(f"{label} trace: {len(call)} call spans, "
                              f"{len(dev_ev)} device events")
     starts = [a for a, _, _ in spans]
-    split = {k: 0.0 for k in PREFILL_KINDS}
+    split = {k: 0.0 for k in kinds}
     for e in dev_ev:
         kind = None
         t = launch.get(e.get("args", {}).get("correlation"))
@@ -2334,9 +2352,32 @@ def profile_prefill(dev, cfg, prefill, params, batch, label):
             busy += b - a
             end = b
     wall = call[0]["dur"]
-    out = {"device_ms": {k: round(v, 4) for k, v in split.items()},
-           "device_ms_total": round(sum(split.values()), 4), "wall_ms": wall / 1e3,
-           "idle": 1 - busy / wall, "kernels": len(dev_ev)}
+    return {"device_ms": {k: round(v, 4) for k, v in split.items()},
+            "device_ms_total": round(sum(split.values()), 4), "wall_ms": wall / 1e3,
+            "idle": 1 - busy / wall, "kernels": len(dev_ev)}
+
+
+def profile_prefill(dev, cfg, prefill, params, batch, label):
+    """One ``torch.profiler`` run over one prefill (ended by a
+    synchronize): device time by kind (matmuls outside the ranges below,
+    the flash loop's ops, the SSD scan, the MoE dispatch and combine, the
+    rest) and the card's idle share of the call's wall time.  A kernel
+    belongs to the range its launch was enqueued in.  Raises where a range
+    that ``cfg``'s family runs holds no device time (``prefill_ranges``
+    rebinds the model's functions, so a call that no longer goes through
+    them shows here).  The trace goes to build/<label>_prefill_trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with prefill_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+        with record_function("prefill_call"):
+            prefill(params, batch)
+            torch.cuda.synchronize()
+    out = trace_split(prof, f"{label}_prefill_trace.json", PREFILL_KINDS, "prefill_call",
+                      f"{label} prefill")
+    split = out["device_ms"]
     log(f"{label} prefill under the profiler: " + json.dumps(out))
     need = ["matmuls"] + (["attention"] if cfg.family != "ssm" else []) \
         + (["ssd_scan"] if cfg.family in ("ssm", "hybrid") else []) \
@@ -3679,6 +3720,536 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     return rows
 
 
+TRAIN_STEPS = 12                 # the first run; the resumed run goes 4 steps further
+TRAIN_MORE = 4
+TRAIN_B, TRAIN_S = 8, 2048       # crosses q_block 512 and kv_block 1,024 several times
+TRAIN_LR = 1e-3
+TRAIN_HOLD = (1, 256)            # the card-against-CPU gradient hold: B x S, 2 layers
+TRAIN_HOLD_LAYERS = 2
+# The card against the CPU on one step's gradients at full width (2 layers,
+# gains 1): each leaf's largest gap over its largest CPU entry, floored at
+# 1% of the largest entry of any leaf.  The card's bf16 products round
+# other entries to the other neighbour than the CPU's (CARD_REL_TOL_FULL's
+# note), and every gradient reads them; the reduced configs read up to
+# 2.4% against the reference (tests/test_torch_train_grads*.py).  The
+# control (attention without its causal mask) must go over it.
+CARD_GRAD_REL = 1e-1
+CARD_GRAD_FLOOR = 1e-2
+TRAIN_KINDS = ("matmuls", "flash_fwd", "flash_bwd", "fused_ce", "optimizer", "rest")
+OLMOE_TRAIN_LAYERS = 2           # olmoe_1b_7b cut in depth from 16; every width as published
+OLMOE_TRAIN = (4, 2048)
+
+
+class train_ranges:
+    """Within the block the flash loop's forward and backward, the fused
+    cross-entropy's forward and backward and the AdamW update each run
+    inside a ``record_function`` range named for their kind, so a trace
+    can attribute the kernels each launches (the backward ones from the
+    autograd thread)."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.models import attention, layers
+        from repro_torch.train import step as train_step_mod
+
+        def wrap(fn, kind):
+            def ranged(*a, **k):
+                with record_function(kind):
+                    return fn(*a, **k)
+            return ranged
+
+        self.sites = [(attention, "_flash_fwd", "flash_fwd"), (attention, "_flash_bwd", "flash_bwd"),
+                      (train_step_mod, "apply_updates", "optimizer")]
+        self.saved = [getattr(m, n) for m, n, _ in self.sites]
+        for (m, n, kind), fn in zip(self.sites, self.saved):
+            setattr(m, n, wrap(fn, kind))
+        self.ce = layers._FusedCE
+        self.ce_saved = (self.ce.forward, self.ce.backward)
+        self.ce.forward = staticmethod(wrap(self.ce_saved[0], "fused_ce"))
+        self.ce.backward = staticmethod(wrap(self.ce_saved[1], "fused_ce"))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.sites, self.saved):
+            setattr(m, n, fn)
+        self.ce.forward = staticmethod(self.ce_saved[0])
+        self.ce.backward = staticmethod(self.ce_saved[1])
+
+
+class save_log:
+    """Within the block, each ``CheckpointManager`` save's seconds until
+    ``save`` returned and until its ``_write`` (on the save thread) ended,
+    and the codec kernels launched inside that ``_write`` (the training
+    thread launches none of them), by step."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint.manager import CheckpointManager
+
+        self.cls, self.rows = CheckpointManager, {}
+        self.save, self.write = CheckpointManager.save, CheckpointManager._write
+        log_ = self
+
+        def save(mgr, step, state, *, blocking=False):
+            log_.rows[step] = {"t0": time.perf_counter()}
+            log_.save(mgr, step, state, blocking=blocking)
+            log_.rows[step]["return_s"] = time.perf_counter() - log_.rows[step]["t0"]
+
+        def write(mgr, step, *a, **k):
+            before = _path_launches()
+            log_.write(mgr, step, *a, **k)
+            after = _path_launches()
+            row = log_.rows[step]
+            row["disk_s"] = time.perf_counter() - row["t0"]
+            row["launches"] = {n: after[n] - before[n] for n in after}
+
+        CheckpointManager.save, CheckpointManager._write = save, write
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save, self.cls._write = self.save, self.write
+
+
+def _plane_entries(entries):
+    """The entries the card's stages code (bf16 and f32 leaves)."""
+    return {k: e for k, e in entries.items() if e["dtype"] in ("bfloat16", "float32")}
+
+
+def save_plan(directory, step):
+    """K3 and K7 launches of one save of the train state, from its blobs:
+    one K3 launch a full leaf, one a window of each dtype's batched deltas
+    (weights against the base, moments against the previous save), one K7
+    launch a chunk cap of each leaf's Huffman chunks; and each kind's
+    ratio (params and moments apart)."""
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+
+    entries, data = checkpoint_entries(directory, step)
+    plane = _plane_entries(entries)
+    k3 = sum(e["kind"] == "full" for e in plane.values())
+    for kind in ("delta", "delta_prev"):
+        sizes: dict = {}
+        for key in sorted(plane):
+            if plane[key]["kind"] == kind:
+                sizes.setdefault(plane[key]["dtype"], []).append(plane[key]["raw"])
+        k3 += sum(k3_windows(g, MAX_BATCH_BYTES) for g in sizes.values())
+    k7 = sum(k7_launches(read_blob(data, e)) for e in plane.values())
+    ratio: dict = {}
+    for key, e in entries.items():
+        part = "moments" if key.startswith("opt/") else "params"
+        r = ratio.setdefault(f"{part} {e['kind']}", [0, 0])
+        r[0] += e["size"]
+        r[1] += e["raw"]
+    return ({"plane_producer": k3, "bitpack_encode_chunks": k7, "huffdecode_serial": 0,
+             "plane_consumer": 0, "huffdecode_chain": 0},
+            {k: round(100 * a / b, 4) for k, (a, b) in ratio.items()})
+
+
+def decode_plan(cts):
+    """K1 one-shot and K2 launches that decoding ``cts`` (a base's full
+    blobs, or a manifest's leaves) in one batched call takes: one K1
+    launch a leaf with Huffman chunks, one K2 launch a window of each
+    layout's leaves."""
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+
+    sizes: dict = {}
+    for dtype, raw, _ in cts:
+        sizes.setdefault(dtype, []).append(raw)
+    return {"huffdecode_serial": sum(has_huff(blob) for _, _, blob in cts),
+            "plane_consumer": sum(k3_windows(g, MAX_BATCH_BYTES) for g in sizes.values()),
+            "huffdecode_chain": 0}
+
+
+def check_plan(label, got, plan):
+    bad = {k: (got.get(k, 0), n) for k, n in plan.items() if got.get(k, 0) != n}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, plan) {bad}")
+
+
+def same_tree(label, a, b, dev=None):
+    """Raise unless two trees hold the same keys and bits (``a`` on ``dev``)."""
+    import torch
+
+    from repro_torch import _util
+
+    ka, kb = _util.tree_flatten_with_keys(a), _util.tree_flatten_with_keys(b)
+    if [k for k, _ in ka] != [k for k, _ in kb]:
+        raise AssertionError(f"{label}: keys differ")
+    for (k, x), (_, y) in zip(ka, kb):
+        if not (x.dtype == y.dtype and x.shape == y.shape
+                and (dev is None or x.device == dev)
+                and torch.equal(bits(x.reshape(-1)), bits(y.reshape(-1).to(x.device)))):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def grad_gap(want, got):
+    """Each leaf's largest gap over its largest ``want`` entry, floored at
+    CARD_GRAD_FLOOR of the largest entry of any leaf; the largest and its
+    leaf index."""
+    want = [w.float() for w in want]
+    top = max(float(w.abs().max()) for w in want)
+    gaps = [float((w - g.float().cpu()).abs().max()) / max(float(w.abs().max()),
+                                                           CARD_GRAD_FLOOR * top)
+            for w, g in zip(want, got)]
+    i = max(range(len(gaps)), key=gaps.__getitem__)
+    return gaps[i], i
+
+
+def hold_train_grads(dev, cfg):
+    """One step's loss and gradients of ``cfg`` cut to TRAIN_HOLD_LAYERS
+    layers (every width as published; ``init_train_state``'s params, gains
+    1) on the card against the CPU at TRAIN_HOLD's ``make_batch`` batch:
+    every leaf within CARD_GRAD_REL (``grad_gap``).  The same card step
+    with attention not causal (another function) must go over it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import attention
+    from repro_torch.train import init_train_state, loss_and_grads
+
+    small = dataclasses.replace(cfg, n_layers=TRAIN_HOLD_LAYERS)
+    B, S = TRAIN_HOLD
+    host = init_train_state(small, SEED + 90, device="cpu")["params"]
+    card = _util.tree_map(lambda t: t.to(dev), host)
+    hb = make_batch(small, DataConfig(S, B), 0, device="cpu")
+    cb = {k: v.to(dev) for k, v in hb.items()}
+    t0 = time.perf_counter()
+    lh, _, gh = loss_and_grads(small, host, hb)
+    t_cpu = time.perf_counter() - t0
+    lc, _, gc = loss_and_grads(small, card, cb)
+    real = attention._attend
+    attention._attend = lambda q, k, v, c, *, causal: real(q, k, v, c, causal=not causal)
+    try:
+        lx, _, gx = loss_and_grads(small, card, cb)
+    finally:
+        attention._attend = real
+    keys = [k for k, _ in _util.tree_flatten_with_keys(host)]
+    want = _util.tree_leaves(gh)
+    if not all(torch.isfinite(g).all() for g in _util.tree_leaves(gc)):
+        raise AssertionError("train hold: a card gradient is not finite")
+    gap, i = grad_gap(want, _util.tree_leaves(gc))
+    ctl, j = grad_gap(want, _util.tree_leaves(gx))
+    row = {"B": B, "S": S, "layers": TRAIN_HOLD_LAYERS, "loss_cpu": float(lh),
+           "loss_card": float(lc), "loss_gap_rel": abs(float(lc) - float(lh)) / float(lh),
+           "max_grad_gap_rel": gap, "worst_leaf": keys[i], "control_loss": float(lx),
+           "control_max_grad_gap_rel": ctl, "control_worst_leaf": keys[j], "cpu_s": t_cpu}
+    log(f"train, card against the CPU ({TRAIN_HOLD_LAYERS} of {cfg.n_layers} layers at full "
+        f"width; each leaf's gradient within {CARD_GRAD_REL} of its largest CPU entry, floored "
+        f"at {CARD_GRAD_FLOOR} of the largest; the non-causal control must go over): "
+        + json.dumps(row))
+    if ctl <= CARD_GRAD_REL:
+        raise AssertionError(f"train hold: the control passes: {row}")
+    if gap > CARD_GRAD_REL:
+        raise AssertionError(f"train hold: the card's gradients differ from the CPU's: {row}")
+    return row
+
+
+def profile_train_step(dev, cfg, step_fn, state, batch):
+    """One ``torch.profiler`` run over one train step (ended by a
+    synchronize): device ms by kind (TRAIN_KINDS; matmuls are the GEMM
+    kernels outside the named ranges) and the idle share.  Raises where a
+    range holds no device time.  Trace: build/train_step_trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with train_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+    out = trace_split(prof, "train_step_trace.json", TRAIN_KINDS, "train_step", "train step")
+    empty = [k for k in TRAIN_KINDS if k != "rest" and not out["device_ms"][k]]
+    if empty:
+        raise AssertionError(f"train step trace: no device time under {empty}")
+    log("train step under the profiler: " + json.dumps(out))
+    return out, state
+
+
+def phase_grad_sync(dev, zcfg, cfg, params, batch):
+    """``GradSync`` on one real step's gradients at full width: ``pack`` on
+    the card (K3 a window, K7 a chunk cap a leaf, against the plan from the
+    blobs) and ``unpack`` back onto the card (K1's one-shot decode, K2)
+    bit for bit; layers 0-1 of the stacks (cut to bound the host's time)
+    packed on the card and on the host give equal blobs."""
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.core.device_plane import MAX_BATCH_BYTES
+    from repro_torch.core.options import CodecOptions
+    from repro_torch.distributed import GradSync
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.train import loss_and_grads
+
+    _, _, grads = loss_and_grads(cfg, params, batch)
+    opts = CodecOptions(threads=-1, backend="device", device_resident=True)
+    gs = GradSync(zcfg, options=opts, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    manifest, st = gs.pack(grads)
+    pack_launches = _path_launches()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    back = gs.unpack(manifest)
+    torch.cuda.synchronize()
+    t_unpack = time.perf_counter() - t0
+    unpack_launches = _path_launches()
+    same_tree("GradSync round trip", back, grads, dev)
+    cts = manifest["leaves"]
+    sizes: dict = {}
+    for ct, g in zip(cts, _util.tree_leaves(grads)):
+        sizes.setdefault(ct.dtype, []).append(g.numel() * g.element_size())
+    check_plan("GradSync.pack", pack_launches, {
+        "plane_producer": sum(k3_windows(v, MAX_BATCH_BYTES) for v in sizes.values()),
+        "bitpack_encode_chunks": sum(k7_launches(ct.blob) for ct in cts),
+        "huffdecode_serial": 0, "plane_consumer": 0, "huffdecode_chain": 0})
+    check_plan("GradSync.unpack", unpack_launches, decode_plan(
+        [(ct.dtype, g.numel() * g.element_size(), ct.blob)
+         for ct, g in zip(cts, _util.tree_leaves(grads))]))
+    cut = {"layers": _util.tree_map(lambda t: t[:2].clone(), grads["layers"])}
+    card_blobs = [c.blob for c in GradSync(zcfg, options=opts, device=dev).pack(cut)[0]["leaves"]]
+    t0 = time.perf_counter()
+    host_m, _ = GradSync(zcfg, options=CodecOptions(threads=-1, backend="host"),
+                         device="cpu").pack(_util.tree_map(lambda t: t.cpu(), cut))
+    t_host = time.perf_counter() - t0
+    if card_blobs != [c.blob for c in host_m["leaves"]]:
+        raise AssertionError("GradSync: layers 0-1 packed on the card differ from the host's")
+    out = {"raw_bytes": st.raw_bytes, "comp_bytes": st.comp_bytes, "ratio_pct": st.ratio_pct,
+           "pack_s": st.seconds_compress, "unpack_s": t_unpack, "pack_launches": pack_launches,
+           "unpack_launches": unpack_launches, "host_pack_layers_0_1_s": t_host}
+    log("GradSync of one step's gradients on the card (bit-exact round trip; layers 0-1 "
+        "equal to the host's blobs): " + json.dumps(out))
+    return out
+
+
+def olmoe_train_step(dev):
+    """olmoe_1b_7b at its published widths cut in depth to
+    OLMOE_TRAIN_LAYERS of its 16 layers (the whole model's bf16 params, f32
+    moments and gradients, ~83 GB, do not fit one card): one step at
+    OLMOE_TRAIN's batch with the fused CE at vocab 50,304 and the capacity
+    factor 1.25, so the dispatch and combine backward run at full width.
+    Two runs of the step's gradients must be equal bit for bit and finite;
+    then the AdamW update."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import moe
+    from repro_torch.optim import AdamWConfig, apply_updates
+    from repro_torch.train import init_train_state, loss_and_grads
+
+    free_card()
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b"), n_layers=OLMOE_TRAIN_LAYERS)
+    state = init_train_state(cfg, SEED + 91, device=dev)
+    n_params = sum(t.numel() for t in _util.tree_leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size() for t in _util.tree_leaves(state))
+    B, S = OLMOE_TRAIN
+    batch = make_batch(cfg, DataConfig(S, B), 0, device=dev)
+    calls = {"dispatch": 0, "combine": 0}
+    saved = (moe._Dispatch.backward, moe._Combine.backward)
+
+    def counted(fn, name):
+        def run(ctx, g):
+            calls[name] += 1
+            return fn(ctx, g)
+        return staticmethod(run)
+
+    moe._Dispatch.backward = counted(saved[0], "dispatch")
+    moe._Combine.backward = counted(saved[1], "combine")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, metrics, g1 = loss_and_grads(cfg, state["params"], batch)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        _, _, g2 = loss_and_grads(cfg, state["params"], batch)
+    finally:
+        moe._Dispatch.backward, moe._Combine.backward = (staticmethod(f) for f in saved)
+    if calls["dispatch"] < 2 * cfg.n_layers or calls["combine"] < 2 * cfg.n_layers:
+        raise AssertionError(f"olmoe train: the MoE backward passes ran {calls}")
+    if not torch.isfinite(loss) or not all(torch.isfinite(g).all()
+                                           for g in _util.tree_leaves(g1)):
+        raise AssertionError("olmoe train: loss or gradients not finite")
+    same_tree("olmoe train: two runs of the step's gradients", g1, g2)
+    del g2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apply_updates(AdamWConfig(), state["params"], g1, state["opt"], state["step"])
+    torch.cuda.synchronize()
+    out = {"layers": cfg.n_layers, "params": n_params, "train_state_bytes": state_bytes,
+           "B": B, "S": S, "loss": float(loss), "aux": float(metrics["aux"]),
+           "loss_and_grads_s": t_step, "adamw_s": time.perf_counter() - t0,
+           "backward_calls": calls, "peak_card_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"olmoe_1b_7b train step ({cfg.n_layers} of 16 layers at full width; two runs' "
+        "gradients bit-identical and finite): " + json.dumps(out))
+    del state, g1
+    free_card()
+    return out
+
+
+def phase_train(dev, zcfg):
+    """repro_gpt_100m trained whole at its published size through
+    ``repro_torch.launch.train.main`` (B=8 x S=2,048, random weights from a
+    seed), with ZipNN checkpoints saved on the card (K3, K7) every 4 steps
+    (a base, a delta, a base), resumed in a second ``main`` on the card
+    (K1's one-shot decode, K2); then the card-against-CPU gradient hold,
+    ``GradSync`` on a real step's gradients, and one olmoe_1b_7b step.
+    Both ``main`` calls run in this process: ``data.make_batch`` seeds with
+    ``hash(cfg.name)``, which Python salts per process, so only one process
+    sees the same batches twice."""
+    import shutil
+
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.options import CodecOptions
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    free_card()
+    t_start = time.perf_counter()
+    cfg = get_config("repro_gpt_100m")
+    N, M, B, S = TRAIN_STEPS, TRAIN_MORE, TRAIN_B, TRAIN_S
+    opts = CodecOptions(threads=-1, backend="device")
+    work = os.path.join(ROOT, "build", "chip_train_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--arch", cfg.name, "--batch", str(B), "--seq", str(S), "--lr", str(TRAIN_LR),
+            "--ckpt-dir", work, "--ckpt-every", "4", "--base-every", "2", "--log-every", "1",
+            "--device", str(dev)]
+    out = {"launches": {}}
+    try:
+        state: dict = {}
+        reset_launch_counts()
+        with save_log() as saves:
+            first = launch_train.main(argv + ["--steps", str(N)], zipnn_config=zcfg,
+                                      options=opts, state_out=state)
+            torch.cuda.synchronize()
+        add_launches(out["launches"], _path_launches())
+        losses = first["losses"]
+        lo, hi = 0.5 * math.log(cfg.vocab_size), 2.5 * math.log(cfg.vocab_size)
+        if not (lo <= losses[0] <= hi and losses[-1] < losses[0]
+                and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"train: losses {losses} (step 1 must lie in "
+                                 f"[{lo:.3f}, {hi:.3f}] and the loss fall)")
+        saved_steps = sorted(saves.rows)
+        if saved_steps != [4, 8, 12]:
+            raise AssertionError(f"train: saves at {saved_steps}")
+        out["saves"] = {}
+        for st in saved_steps:
+            plan, ratio = save_plan(work, st)
+            check_plan(f"train save at step {st}", saves.rows[st]["launches"], plan)
+            out["saves"][st] = {"kind": checkpoint_kind(work, st), "return_s":
+                                saves.rows[st]["return_s"], "disk_s": saves.rows[st]["disk_s"],
+                                "launches": plan, "ratio_pct_by_kind": ratio}
+        out["first_run"] = {k: first[k] for k in ("losses", "tokens_per_s", "ckpt")}
+        log(f"train: {N} steps of repro_gpt_100m at B={B} S={S} through launch.train, losses "
+            f"{losses}; saves on the card (seconds to return and to disk, K3/K7 launches equal "
+            f"to the plan from the blobs, ratio by kind): " + json.dumps(out["saves"]))
+
+        # the restored state equals the saved one bit for bit
+        mgr = CheckpointManager(CheckpointConfig(work, zipnn=zcfg, device=dev))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        step, tree = mgr.restore(device_resident=True)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        restore_launches = _path_launches()
+        add_launches(out["launches"], restore_launches)
+        if step != N or int(tree["step"]) != N:
+            raise AssertionError(f"train restore: step {step}, state step {int(tree['step'])}")
+        same_tree("train restore", tree, state, dev)
+        del tree
+        entries, data = checkpoint_entries(work, N)
+        check_plan("train restore", restore_launches, decode_plan(
+            [(e["dtype"], e["raw"], read_blob(data, e)) for e in _plane_entries(entries).values()]))
+        out["restore"] = {"seconds": t_restore, "launches": restore_launches}
+
+        # the uninterrupted run: the in-memory state N steps on, 4 more steps
+        ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=max((N + M) // 20, 2), total_steps=N + M)
+        step_fn = make_train_step(cfg, ocfg)
+        dc = DataConfig(seq_len=S, global_batch=B)
+        cont, times = [], []
+        state_bytes = sum(t.numel() * t.element_size() for t in _util.tree_leaves(state))
+        for i in range(N, N + M):
+            batch = make_batch(cfg, dc, i, device=dev)
+            torch.cuda.synchronize()
+            if i == N + 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+                resident = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == N + 1:
+                peak = torch.cuda.max_memory_allocated(dev)
+            cont.append(float(metrics["loss"]))
+        step_s = sorted(times[1:])[len(times[1:]) // 2]
+        out["step"] = {"B": B, "S": S, "seconds": times, "median_s": step_s,
+                       "tokens_per_s": B * S / step_s, "train_state_bytes": state_bytes,
+                       "resident_bytes": resident, "peak_card_bytes": peak}
+        log(f"train step B={B} S={S}: median {step_s:.4f} s of steps {N + 2}-{N + M} "
+            f"({B * S / step_s:.1f} tokens/s); train state {state_bytes} B, {resident} B "
+            f"resident before the step, card peak {peak} B")
+        batch = make_batch(cfg, dc, N + M, device=dev)
+        out["profile"], state = profile_train_step(dev, cfg, step_fn, state, batch)
+        out["grad_sync"] = phase_grad_sync(dev, zcfg, cfg, state["params"], batch)
+        add_launches(out["launches"], out["grad_sync"]["pack_launches"])
+        add_launches(out["launches"], out["grad_sync"]["unpack_launches"])
+        del state, batch
+        free_card()
+
+        # the resumed run: a second main on the same directory to N + 4
+        reset_launch_counts()
+        second = launch_train.main(argv + ["--steps", str(N + M)], zipnn_config=zcfg,
+                                   options=opts)
+        torch.cuda.synchronize()
+        resume_launches = _path_launches()
+        add_launches(out["launches"], resume_launches)
+        if second["start"] != N or len(second["losses"]) != M:
+            raise AssertionError(f"train resume: started at {second['start']}, "
+                                 f"{len(second['losses'])} steps")
+        res = second["losses"]
+        identical = res == cont
+        worst = max(abs(a - b) / abs(b) for a, b in zip(res, cont))
+        out["resume"] = {"seconds": second["resume_s"], "losses": res, "uninterrupted": cont,
+                         "bit_identical": identical, "max_rel_gap": worst,
+                         "launches": resume_launches, "ckpt": second["ckpt"]}
+        log(f"train resume: main restored step {N} in {second['resume_s']:.3f} s and ran steps "
+            f"{N + 1}-{N + M}: losses {res}; the uninterrupted run's {cont}; bit-identical "
+            f"{identical}, largest gap {worst:.3e} of the loss")
+        if worst > 1e-6:
+            raise AssertionError(f"train resume: losses {res} against {cont}")
+        for k in ("huffdecode_serial", "plane_consumer", "plane_producer",
+                  "bitpack_encode_chunks"):
+            if not resume_launches[k]:
+                raise AssertionError(f"train resume: {k} never launched")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_card()
+    out["hold"] = hold_train_grads(dev, cfg)
+    out["olmoe"] = olmoe_train_step(dev)
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"train phase: {out['phase_s']:.1f} s; launches on its paths {out['launches']}")
+    return out
+
+
+def checkpoint_kind(directory, step):
+    with open(os.path.join(directory, f"step_{step}", "manifest.json")) as f:
+        return json.load(f)["kind"]
+
+
 def main() -> int:
     import torch
 
@@ -3762,7 +4333,27 @@ def main() -> int:
             raise AssertionError(f"{label}: kernels of the path never launched: {idle}")
         if front[label]["launches"].get("huffdecode_chain"):
             raise AssertionError(f"{label}: the path launched K1's chain baseline")
+    # this slice's path: training (repro_gpt_100m whole through launch.train
+    # with checkpoints saved and resumed on the card, GradSync; olmoe's step)
+    train = phase_train(dev, zcfg)
+    tl = train["launches"]
+    idle = [k for k in ("plane_producer", "bitpack_encode_chunks", "huffdecode_serial",
+                        "plane_consumer") if not tl.get(k)]
+    if idle:
+        raise AssertionError(f"train: kernels of the path never launched: {idle}")
+    if tl.get("huffdecode_chain"):
+        raise AssertionError("train: the path launched K1's chain baseline")
     reset_launch_counts()
+
+    def train_rows(counter):
+        """A kernel's launches on the train path: each save, the restore,
+        the resumed run (its restore and save), GradSync's pack and unpack."""
+        return {"launches": tl.get(counter, 0),
+                "saves": {st: r["launches"][counter] for st, r in train["saves"].items()},
+                "restore": train["restore"]["launches"][counter],
+                "resumed_run": train["resume"]["launches"][counter],
+                "grad_sync_pack": train["grad_sync"]["pack_launches"][counter],
+                "grad_sync_unpack": train["grad_sync"]["unpack_launches"][counter]}
 
     def moe_rows(k, counter):
         """Kernel ``k``'s readings and launches on the two MoE paths."""
@@ -3852,7 +4443,8 @@ def main() -> int:
                  for label in ssm},
          "vlm_audio": {label: {leaf: k1_serial(r["K1"], front[label]["launches"])
                                for leaf, r in front[label]["kernels"].items()}
-                       for label in front}},
+                       for label in front},
+         "train": train_rows("huffdecode_serial")},
         {"name": "plane_consumer", "route": "cuda",
          "source": "src/repro_torch/csrc/unplane.cu",
          "replaces": "src/repro/kernels/fused_unplane.py:83",
@@ -3865,7 +4457,7 @@ def main() -> int:
          "launches_restore_then_prefill": ckpt["prefill_launches"]["plane_consumer"],
          "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN),
          "moe": moe_rows("K2", "plane_consumer"), "ssm": ssm_rows("K2", "plane_consumer"),
-         "vlm_audio": front_rows("K2", "plane_consumer")},
+         "vlm_audio": front_rows("K2", "plane_consumer"), "train": train_rows("plane_consumer")},
         {"name": "plane_producer", "route": "cuda",
          "source": "src/repro_torch/csrc/plane.cu",
          "replaces": "src/repro/kernels/fused_plane.py:52",
@@ -3878,7 +4470,7 @@ def main() -> int:
          "launches_checkpoint_save": ckpt["save_launches"]["plane_producer"],
          "granite": dict(gk["K3"], launches=gl["plane_producer"], shape=W_IN),
          "moe": moe_rows("K3", "plane_producer"), "ssm": ssm_rows("K3", "plane_producer"),
-         "vlm_audio": front_rows("K3", "plane_producer")},
+         "vlm_audio": front_rows("K3", "plane_producer"), "train": train_rows("plane_producer")},
         {"name": "bitpack_encode_chunks", "route": "cuda",
          "source": "src/repro_torch/csrc/bitpack.cu",
          "replaces": "src/repro/kernels/bitpack.py:116",
@@ -3891,7 +4483,8 @@ def main() -> int:
          "granite": dict(gk["K7"], launches=gl["bitpack_encode_chunks"], shape=W_IN),
          "moe": moe_rows("K7", "bitpack_encode_chunks"),
          "ssm": ssm_rows("K7", "bitpack_encode_chunks"),
-         "vlm_audio": front_rows("K7", "bitpack_encode_chunks")},
+         "vlm_audio": front_rows("K7", "bitpack_encode_chunks"),
+         "train": train_rows("bitpack_encode_chunks")},
     ]
     # The ops kernels: launches are those of the ops path over the 108
     # leaves; times from measure_ops (K4/K11 list both widths, K5 both
@@ -3945,6 +4538,13 @@ def main() -> int:
                                                       if "control" in p["hold"] else
                                                       p["hold"]["control_max_gap_rel"])}
                       for label, p in prefills.items()}))
+    log("train summary: " + json.dumps({
+        "tokens_per_s": train["step"]["tokens_per_s"], "step": train["step"],
+        "device_ms": train["profile"]["device_ms"], "idle": train["profile"]["idle"],
+        "saves": train["saves"], "restore_s": train["restore"]["seconds"],
+        "resume": {k: train["resume"][k] for k in ("seconds", "bit_identical", "max_rel_gap")},
+        "first_losses": train["first_run"]["losses"], "grad_sync": train["grad_sync"],
+        "hold": train["hold"], "olmoe": train["olmoe"], "phase_s": train["phase_s"]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

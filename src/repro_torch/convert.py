@@ -1,4 +1,5 @@
-"""Params exported as numpy arrays → the package's tensors, bit for bit.
+"""Params and train states exported as numpy arrays → the package's
+tensors, bit for bit.
 
 The reference keeps params as nested dicts of arrays; ``numpy.asarray``
 of each leaf gives numpy arrays, bf16 ones with a ``bfloat16`` dtype
@@ -16,7 +17,7 @@ import torch
 
 from . import _util
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy"]
 
 
 def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
@@ -37,3 +38,15 @@ def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
     """Nested dicts of numpy arrays → the same tree of tensors on ``device``."""
     dev = _util.resolve_device(device)
     return _util.tree_map(lambda a: _leaf(a, dev), tree)
+
+
+def train_state_from_numpy(tree: Any, device: Any = "cuda") -> Any:
+    """A train state ``{"params", "opt": {"m", "v"}, "step"}`` of numpy
+    arrays (the reference's ``init_train_state`` through ``numpy.asarray``)
+    → the same state on ``device``: params as :func:`params_from_numpy`
+    makes them, f32 moments, a 0-d int32 step."""
+    dev = _util.resolve_device(device)
+    opt = {k: _util.tree_map(lambda a: _leaf(np.asarray(a, np.float32), dev), tree["opt"][k])
+           for k in ("m", "v")}
+    return {"params": params_from_numpy(tree["params"], dev), "opt": opt,
+            "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=dev)}

@@ -3,8 +3,9 @@ whole sequence (forward and prefill), and the caches and one-token GQA
 and MLA decode.
 
 A port of ``repro.models.attention``: ``_block_mask``,
-``_flash_fwd_impl`` / ``flash_attention`` (the forward only: there is no
-backward here), ``dense_attention``, ``_attend``, ``_qkv`` /
+``_flash_fwd_impl`` / ``_flash_core`` / ``flash_attention`` with the
+FlashAttention-2 backward of its custom VJP, ``dense_attention`` (plain
+autograd, as the reference keeps plain autodiff), ``_attend``, ``_qkv`` /
 ``gqa_train``, ``_mla_qkv`` / ``mla_train``, ``init_kv_cache``,
 ``gqa_decode``, ``init_mla_cache`` and ``mla_decode``.  The caches are
 read-only in the decode functions; the caller writes every layer's
@@ -88,37 +89,20 @@ def _block_live(q0: int, q1: int, k0: int, k1: int, S: int, causal: bool, window
     return not (window > 0 and k1 - 1 <= q0 - window)
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int = 0,
-    q_block: int = 512, kv_block: int = 1024,
-) -> torch.Tensor:
-    """Blockwise online-softmax attention, the forward of the reference's
-    ``flash_attention``.
-
-    q: (B, S, H, hd); k: (B, S, G, hd); v: (B, S, G, hd_v) with H % G == 0
-    (hd_v may differ from hd: MLA has 192-wide qk and 128-wide v).
-    ``window > 0`` keeps keys with ``kpos > qpos - window``.  Blocks are
-    ``min(q_block, S)`` and ``min(kv_block, S)``, q/k/v zero-padded to a
-    whole number of them; each q block runs its kv blocks in order.
-    Returns (B, S, H, hd_v) in q's dtype.
-    """
-    B, S, H, hd = q.shape
-    G, hd_v = k.shape[2], v.shape[-1]
+def _flash_fwd(q, k, v, S: int, causal: bool, window: int, qb_len: int, kb_len: int):
+    """The blockwise forward over padded q (B, Sq, H, hd), k (B, Sk, G, hd)
+    and v (B, Sk, G, hd_v): (out (B, G, rep, Sq, hd_v) in q's dtype, lse
+    (B, G, rep, Sq) f32 = ``m + log(max(l, 1e-30))``)."""
+    B, Sq, H, hd = q.shape
+    G, hd_v, Sk = k.shape[2], v.shape[-1], k.shape[1]
     rep = H // G
-    qb_len, kb_len = min(q_block, S), min(kv_block, S)
-    pad_q, pad_k = (-S) % qb_len, (-S) % kb_len
-    if pad_q:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
-    if pad_k:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
-    Sq, Sk = S + pad_q, S + pad_k
     dev = q.device
     # (B, G, rep, S, hd) queries scaled in bf16; (B, G, S, hd) keys, values
     qs = (q * _bf16_scale(hd)).reshape(B, Sq, G, rep, hd).permute(0, 2, 3, 1, 4)
     kt = _f32(k.permute(0, 2, 1, 3))
     vt = v.permute(0, 2, 1, 3)
     out = torch.empty((B, G, rep, Sq, hd_v), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, G, rep, Sq), dtype=torch.float32, device=dev)
     for q0 in range(0, Sq, qb_len):
         q1 = q0 + qb_len
         qb = _f32(qs[:, :, :, q0:q1]).reshape(B, G, rep * qb_len, hd)
@@ -143,6 +127,105 @@ def flash_attention(
             acc = acc * corr[..., None] + pv.reshape(B, G, rep, qb_len, hd_v)
             m = m_new
         out[:, :, :, q0:q1] = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
+        lse[:, :, :, q0:q1] = m + torch.log(torch.clamp_min(l, 1e-30))
+    return out, lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, S, causal, window, qb_len, kb_len):
+    """The reference's FlashAttention-2 backward (``_flash_core_bwd``):
+    ``delta = rowsum(dout * out)``; for each kv block, and in it each q
+    block in order, ``p = exp(s - lse)`` recomputed from the scores,
+    ``dv += p^T do``, ``dp = do v^T``, ``ds = p (dp - delta)``,
+    ``dq += ds k * scale`` and ``dk += ds^T q * scale`` with the unscaled
+    q and the f32 ``hd ** -0.5``, all in f32; the skipped blocks' ``p`` is
+    exactly 0 for every row whose ``dout`` is not 0."""
+    B, Sq, H, hd = q.shape
+    G, hd_v, Sk = k.shape[2], v.shape[-1], k.shape[1]
+    rep = H // G
+    dev = q.device
+    scale = hd ** -0.5
+    f32 = torch.float32
+    qs = (q * _bf16_scale(hd)).reshape(B, Sq, G, rep, hd).permute(0, 2, 3, 1, 4)
+    qu = q.reshape(B, Sq, G, rep, hd).permute(0, 2, 3, 1, 4)
+    kt = _f32(k.permute(0, 2, 1, 3))
+    vt = _f32(v.permute(0, 2, 1, 3))
+    do = _f32(dout)                                        # (B, G, rep, Sq, hd_v)
+    delta = (do * _f32(out)).sum(dim=-1)                   # (B, G, rep, Sq)
+    dq = torch.zeros((B, G, rep, Sq, hd), dtype=f32, device=dev)
+    dk = torch.zeros((B, G, Sk, hd), dtype=f32, device=dev)
+    dv = torch.zeros((B, G, Sk, hd_v), dtype=f32, device=dev)
+    n = rep * qb_len
+    for k0 in range(0, Sk, kb_len):
+        k1 = k0 + kb_len
+        kb, vb = kt[:, :, k0:k1], vt[:, :, k0:k1]
+        kpos = torch.arange(k0, k1, device=dev)
+        dk_j = torch.zeros((B, G, kb_len, hd), dtype=f32, device=dev)
+        dv_j = torch.zeros((B, G, kb_len, hd_v), dtype=f32, device=dev)
+        for q0 in range(0, Sq, qb_len):
+            q1 = q0 + qb_len
+            if not _block_live(q0, q1, k0, k1, S, causal, window):
+                continue
+            qb = _f32(qs[:, :, :, q0:q1]).reshape(B, G, n, hd)
+            s = torch.matmul(qb, kb.transpose(-1, -2)).reshape(B, G, rep, qb_len, kb_len)
+            mask = _block_mask(torch.arange(q0, q1, device=dev), kpos, S, causal, window)
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - lse[:, :, :, q0:q1, None]).reshape(B, G, n, kb_len)
+            do_i = do[:, :, :, q0:q1].reshape(B, G, n, hd_v)
+            dv_j = dv_j + torch.matmul(p.transpose(-1, -2), do_i)
+            dp = torch.matmul(do_i, vb.transpose(-1, -2))
+            ds = p * (dp - delta[:, :, :, q0:q1].reshape(B, G, n, 1))
+            dq[:, :, :, q0:q1] += (torch.matmul(ds, kb) * scale).reshape(B, G, rep, qb_len, hd)
+            qu_i = _f32(qu[:, :, :, q0:q1]).reshape(B, G, n, hd)
+            dk_j = dk_j + torch.matmul(ds.transpose(-1, -2), qu_i) * scale
+        dk[:, :, k0:k1] = dk_j
+        dv[:, :, k0:k1] = dv_j
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
+
+
+class _FlashCore(torch.autograd.Function):
+    """The flash loop over padded q, k, v with the reference's custom VJP:
+    the forward saves q, k, v, the output and its per-row logsumexp, and
+    the backward recomputes each block's probabilities from them, so no
+    (q_block, kv_block) score block outlives its step."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, S, causal, window, qb_len, kb_len):
+        out, lse = _flash_fwd(q, k, v, S, causal, window, qb_len, kb_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (S, causal, window, qb_len, kb_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return _flash_bwd(q, k, v, out, lse, dout, *ctx.args) + (None,) * 5
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int = 0,
+    q_block: int = 512, kv_block: int = 1024,
+) -> torch.Tensor:
+    """Blockwise online-softmax attention, the reference's
+    ``flash_attention`` with its FlashAttention-2 backward.
+
+    q: (B, S, H, hd); k: (B, S, G, hd); v: (B, S, G, hd_v) with H % G == 0
+    (hd_v may differ from hd: MLA has 192-wide qk and 128-wide v).
+    ``window > 0`` keeps keys with ``kpos > qpos - window``.  Blocks are
+    ``min(q_block, S)`` and ``min(kv_block, S)``, q/k/v zero-padded to a
+    whole number of them; each q block runs its kv blocks in order.
+    Returns (B, S, H, hd_v) in q's dtype.
+    """
+    B, S, H, hd = q.shape
+    hd_v = v.shape[-1]
+    qb_len, kb_len = min(q_block, S), min(kv_block, S)
+    pad_q, pad_k = (-S) % qb_len, (-S) % kb_len
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    out = _FlashCore.apply(q, k, v, S, causal, window, qb_len, kb_len)
     return out[:, :, :, :S].reshape(B, H, S, hd_v).transpose(1, 2)
 
 

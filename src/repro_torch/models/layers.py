@@ -1,5 +1,6 @@
 """Shared primitive layers: norms, projections, RoPE and M-RoPE, MLPs,
-embeddings.
+embeddings, and the cross-entropy losses (plain, and fused with the
+unembed under a custom backward).
 
 Params are plain nested dicts of tensors in the reference's layout
 (``{"w": (d_in, d_out)}`` dense weights).  Compute dtype is bf16, with
@@ -31,6 +32,8 @@ __all__ = [
     "gelu_mlp",
     "embed",
     "unembed",
+    "cross_entropy",
+    "fused_cross_entropy",
 ]
 
 
@@ -158,7 +161,11 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.to(torch.int64)].to(torch.bfloat16)
+    """Table rows of ``tokens`` in bf16.  Through ``F.embedding``, whose
+    backward on the card sums each row's gradients in a fixed order
+    (indexing's backward, ``index_put_(accumulate=True)``, adds them in an
+    order that changes from run to run)."""
+    return torch.nn.functional.embedding(tokens.to(torch.int64), p["table"]).to(torch.bfloat16)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
@@ -166,3 +173,91 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
     x32 = x.to(torch.bfloat16).to(torch.float32)
     t32 = p["table"].to(torch.bfloat16).to(torch.float32)
     return x32 @ t32.T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor = None) -> torch.Tensor:
+    """Mean negative log-likelihood over valid positions: f32 logits
+    (..., V), int labels (...), an optional mask (...) of weights."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.to(torch.int64)[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _ce_chunks(S: int, n_chunks: int) -> int:
+    """The reference's chunk count: ``n_chunks`` where it divides S, else 1."""
+    return n_chunks if S % n_chunks == 0 else 1
+
+
+def _chunk_logits(xc: torch.Tensor, t32: torch.Tensor) -> torch.Tensor:
+    """(B, c, D) rows against the (V, D) table: bf16 operands, f32 products."""
+    return xc.to(torch.bfloat16).to(torch.float32) @ t32.T
+
+
+class _FusedCE(torch.autograd.Function):
+    """The reference's ``fused_cross_entropy`` with its custom VJP.
+
+    The forward runs the sequence in chunks and keeps each row's
+    logsumexp (n, B, c); the backward recomputes each chunk's logits and
+    emits ``dlogits = (softmax - onehot) * mask * g / msum``, rounded to
+    bf16 before both products (f32 products of bf16 operands); ``dtable``
+    sums over chunks in f32 and is cast to the table's dtype once, ``dx``
+    is cast to x's dtype.  One (B, c, V) f32 block of logits lives at a
+    time: the (B, S, V) logits never exist whole.
+    """
+
+    @staticmethod
+    def forward(ctx, table, x, labels, mask, n_chunks):
+        B, S, D = x.shape
+        n = _ce_chunks(S, n_chunks)
+        c = S // n
+        t32 = table.to(torch.bfloat16).to(torch.float32)
+        lab = labels.to(torch.int64)
+        mf = mask.to(torch.float32)
+        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        msum = torch.zeros((), dtype=torch.float32, device=x.device)
+        lses = []
+        for i in range(n):
+            sl = slice(i * c, (i + 1) * c)
+            logits = _chunk_logits(x[:, sl], t32)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, lab[:, sl, None])[..., 0]
+            nll_sum = nll_sum + ((lse - tgt) * mf[:, sl]).sum()
+            msum = msum + mf[:, sl].sum()
+            lses.append(lse)
+        ctx.save_for_backward(table, x, lab, mf, torch.stack(lses), msum)
+        ctx.n = n
+        return nll_sum / torch.clamp_min(msum, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, x, lab, mf, lses, msum = ctx.saved_tensors
+        B, S, D = x.shape
+        n = ctx.n
+        c = S // n
+        t32 = table.to(torch.bfloat16).to(torch.float32)
+        scale = g / torch.clamp_min(msum, 1.0)
+        dtable = torch.zeros((table.shape[0], D), dtype=torch.float32, device=x.device)
+        dx = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
+        for i in range(n):
+            sl = slice(i * c, (i + 1) * c)
+            xc = x[:, sl].to(torch.bfloat16).to(torch.float32)
+            p = torch.exp(xc @ t32.T - lses[i][..., None])
+            # p - onehot: 1 off the label's entry, exactly
+            p.scatter_add_(-1, lab[:, sl, None], torch.full((B, c, 1), -1.0, device=x.device))
+            dl = (p * (mf[:, sl] * scale)[..., None]).to(torch.bfloat16).to(torch.float32)
+            dx[:, sl] = (dl @ t32).to(x.dtype)
+            dtable = dtable + dl.reshape(B * c, -1).T @ xc.reshape(B * c, D)
+        return dtable.to(table.dtype), dx, None, None, None
+
+
+def fused_cross_entropy(table: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+                        mask: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
+    """Unembed and mean cross-entropy in sequence chunks: ``table`` (V, D),
+    ``x`` (B, S, D), ``labels`` and ``mask`` (B, S) -> the f32 loss
+    ``sum(nll * mask) / max(sum(mask), 1)``.  ``n_chunks`` chunks where
+    they divide S, else one."""
+    return _FusedCE.apply(table, x, labels, mask, n_chunks)

@@ -1,12 +1,15 @@
-"""The full-sequence forward, the decode state and the one-token decode
-step for the dense, MoE, SSM, hybrid, vlm and audio families.
+"""The full-sequence forward and training loss, the decode state and the
+one-token decode step for the dense, MoE, SSM, hybrid, vlm and audio
+families.
 
-A port of ``repro.models.model``'s ``forward`` / ``_trunk`` /
-``_scan_stack`` / ``_hybrid_forward``, ``init_decode_state``,
+A port of ``repro.models.model``'s ``forward`` / ``loss`` / ``_trunk`` /
+``_scan_stack`` / ``_remat`` / ``_hybrid_forward``, ``init_decode_state``,
 ``decode_step`` and ``_slot_write`` as plain functions of ``(cfg, params,
 ...)``.  The forward runs each stack's ``*_block_train`` over the stacked
-params' leading axis and sums the blocks' aux losses; remat and the
-sharding constraints have no numeric effect and are dropped.  In decode the
+params' leading axis (split once by ``unbind``) and sums the blocks' aux
+losses; ``cfg.remat`` maps to activation checkpointing around each layer
+where autograd records; the sharding constraints have no numeric effect
+and are dropped.  In decode the
 layer loop is a Python loop over the stacked params' leading axis (the
 reference scans it) — ``dense_layers`` then ``moe_layers`` for the MoE
 family — and the cache slot write happens once after it, for all layers.
@@ -23,6 +26,7 @@ stack behind an audio front end, with a forward and no decode.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -45,6 +49,7 @@ __all__ = [
     "cache_len",
     "init_decode_state",
     "forward",
+    "loss",
     "decode_step",
     "decode_front",
     "decode_tail",
@@ -341,12 +346,58 @@ def _check_one_device(params, batch: Dict[str, torch.Tensor]) -> None:
         raise ValueError(f"params and batch lie on more than one device: {sorted(map(str, devs))}")
 
 
-def _scan_stack(stack, x: torch.Tensor, apply_fn) -> Tuple[torch.Tensor, torch.Tensor]:
+def _remat(cfg, fn: Callable) -> Callable:
+    """The reference's ``Model._remat`` around one layer's function, where
+    autograd records: ``"full"`` recomputes the layer in the backward
+    (``torch.utils.checkpoint``), ``"dots"`` saves the outputs of the
+    layer's products without batch dimensions and recomputes the rest (a
+    selective checkpoint policy, :func:`_save_dots`: the reference's
+    ``dots_with_no_batch_dims_saveable``), ``"none"`` saves
+    everything.  It changes memory, never values."""
+    if cfg.remat not in ("full", "dots") or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+
+    kwargs = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: ckpt.checkpoint(fn, *args, **kwargs)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy: keep the outputs of products without
+    batch dimensions (the projections' ``mm``), recompute the rest.  Ops
+    run under ``no_grad`` (the custom backward passes' forwards: the flash
+    loop's score blocks) are never kept, as the policy sees every op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _DOT_OPS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+
+def _unstack(stack) -> List[Any]:
+    """A stacked param tree as one tree a layer, split once per leaf by
+    ``unbind`` (under autograd one stack of the layers' gradients, where
+    indexing each layer would add a zero tensor of the whole stack per
+    layer)."""
+    leaves, treedef = _util.tree_flatten(stack)
+    parts = [t.unbind(0) for t in leaves]
+    return [_util.tree_unflatten(treedef, [p[i] for p in parts]) for i in range(len(parts[0]))]
+
+
+def _scan_stack(stack, x: torch.Tensor, apply_fn, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """``apply_fn(layer_params, x) -> (x, aux)`` over the stack's leading
-    axis in order; the aux losses summed in f32."""
+    axis in order, each layer under ``cfg.remat``; the aux losses summed
+    in f32."""
+    fn = _remat(cfg, apply_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_util.tree_leaves(stack)[0].shape[0]):
-        x, a = apply_fn(_util.tree_map(lambda t, i=i: t[i], stack), x)
+    for lp in _unstack(stack):
+        x, a = fn(lp, x)
         aux = aux + a
     return x, aux
 
@@ -390,19 +441,19 @@ def _trunk(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x + params["pos"]["table"][:S][None].to(x.dtype)
     if cfg.family in ("dense", "vlm", "audio"):
         x, aux = _scan_stack(params["layers"], x, lambda lp, h: blocks.dense_block_train(
-            lp, h, cfg, positions, pos_thw))
+            lp, h, cfg, positions, pos_thw), cfg)
     elif cfg.family == "moe":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if "dense_layers" in params:
             x, a = _scan_stack(params["dense_layers"], x, lambda lp, h: blocks.dense_block_train(
-                lp, h, cfg, positions))
+                lp, h, cfg, positions), cfg)
             aux = aux + a
         x, a = _scan_stack(params["moe_layers"], x, lambda lp, h: blocks.moe_block_train(
-            lp, h, cfg, positions))
+            lp, h, cfg, positions), cfg)
         aux = aux + a
     elif cfg.family == "ssm":
         x, aux = _scan_stack(params["layers"], x, lambda lp, h: blocks.mamba_block_train(
-            lp, h, cfg))
+            lp, h, cfg), cfg)
     else:
         x, aux = _hybrid_forward(cfg, params, x, positions)
     return blocks.norm_apply(cfg, params["final_norm"], x), aux
@@ -417,13 +468,42 @@ def _hybrid_forward(cfg, params, x: torch.Tensor, positions: torch.Tensor):
     def mamba(lp, h):
         return blocks.mamba_block_train(lp, h, cfg)
 
-    for g in range(_util.tree_leaves(params["mamba_groups"])[0].shape[0]):
-        group = _util.tree_map(lambda t, g=g: t[g], params["mamba_groups"])
-        x, _ = _scan_stack(group, x, mamba)
-        x, _ = blocks.dense_block_train(shared, x, cfg, positions)
+    attend = _remat(cfg, lambda h: blocks.dense_block_train(shared, h, cfg, positions))
+    for group in _unstack(params["mamba_groups"]):
+        x, _ = _scan_stack(group, x, mamba, cfg)
+        x, _ = attend(x)
     if "mamba_tail" in params:
-        x, _ = _scan_stack(params["mamba_tail"], x, mamba)
+        x, _ = _scan_stack(params["mamba_tail"], x, mamba, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss, the reference's ``Model.loss``: ``(total, {"ce",
+    "aux"})`` with ``total = ce + aux_loss_coef * aux`` (f32).
+
+    The vlm family takes its text logits ``[:, s_img - 1 : s_img - 1 +
+    s_txt]`` from the full forward and applies :func:`layers.cross_entropy`;
+    every other family runs the trunk and :func:`layers.fused_cross_entropy`
+    on the head (``ce_chunks`` chunks; mask ones where the batch has none),
+    so the (B, S, V) logits never exist whole.  ``batch`` holds ``labels``
+    (and optionally ``mask``) beside the forward's keys.
+    """
+    _check_family(cfg)
+    _check_one_device(params, batch)
+    if cfg.family == "vlm":
+        logits, aux = forward(cfg, params, batch)
+        s_img, s_txt = batch["patches"].shape[1], batch["tokens"].shape[1]
+        ce = layers.cross_entropy(logits[:, s_img - 1: s_img - 1 + s_txt], batch["labels"],
+                                  batch.get("mask"))
+    else:
+        x, aux = _trunk(cfg, params, batch)
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        ce = layers.fused_cross_entropy(head["table"], x, labels, mask, cfg.ce_chunks)
+    return ce + cfg.aux_loss_coef * aux, {"ce": ce, "aux": aux}
 
 
 def decode_front(cfg, params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Mixture-of-Experts: top-k router and sorted capacity dispatch.
 
-A port of the forward of ``repro.models.moe``: ``moe_apply`` with its
-Switch-style load-balance loss, ``_dispatch_one`` and ``_combine_rows`` /
-``_combine_one``, and the shared experts.  The custom backward belongs to
-training and is left out.
+A port of ``repro.models.moe``: ``moe_apply`` with its Switch-style
+load-balance loss, ``_dispatch_one`` and ``_combine_rows`` /
+``_combine_one`` (with the custom backward of ``_combine_one_bwd``, and a
+deterministic backward for the dispatch gather), and the shared experts.
+The router, the top-k gates and the aux loss differentiate by autograd.
 
 Tokens reshape to ``(dispatch_shards, T_loc, D)`` and each shard routes
 on its own, as the reference's ``vmap`` over shards does.  Each expert
@@ -71,44 +72,135 @@ def route(p, xt: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.T
     return (probs,) + top_k(probs, cfg)
 
 
+def _slots(sorted_e: torch.Tensor, E: int, C: int, TK: int):
+    """Each expert's group bounds in the sorted pairs, and for slot (e, c)
+    its sorted pair ``start[e] + c`` (clipped) and whether it is live."""
+    dev = sorted_e.device
+    bounds = torch.searchsorted(sorted_e, torch.arange(E + 1, device=dev))
+    start, end = bounds[:-1], bounds[1:]
+    slot_src = start[:, None] + torch.arange(C, device=dev)[None, :]       # (E, C)
+    valid = slot_src < end[:, None]
+    return start, torch.clamp(slot_src, 0, TK - 1), valid
+
+
+def _route_pairs(idx: torch.Tensor, C: int, E: int):
+    """``(sort, pos, slot_src, valid)`` of one shard's (T, K) expert
+    choices: the stable sort of the T*K pairs by expert, each sorted
+    pair's capacity slot (-1 where dropped), and each slot's pair."""
+    T, K = idx.shape
+    flat_e = idx.reshape(-1)
+    sort = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort]
+    start, slot_src, valid = _slots(sorted_e, E, C, T * K)
+    pos_in_group = torch.arange(T * K, device=idx.device) - start[sorted_e]
+    pos = torch.where(pos_in_group < C, pos_in_group, torch.full_like(pos_in_group, -1))
+    return sort, pos, slot_src, valid
+
+
+class _Dispatch(torch.autograd.Function):
+    """``buf[e, c] = xt[token of slot (e, c)]`` (0 in empty slots), with a
+    deterministic backward.
+
+    Each token's gradient is the sum of the rows of the (at most K) live
+    slots that hold it, added one at a time in slot order (the sorted
+    pairs' order: expert by expert, ascending) from 0, every add rounded
+    to xt's dtype.  That is the order and precision of ``jax.grad`` of the
+    reference's ``_dispatch_one`` on the CPU (its gather's transpose, a
+    scatter-add over the slots in order, in bf16), bit for bit.  Plain
+    autograd would differentiate ``xt[src_tok]`` into
+    ``index_put_(accumulate=True)``, which sums on the card in an order
+    that changes from run to run.
+    """
+
+    @staticmethod
+    def forward(ctx, xt, sort, slot_src, valid, K):
+        src_tok = sort[slot_src] // K
+        buf = torch.where(valid[..., None], xt[src_tok],
+                          torch.zeros((), dtype=xt.dtype, device=xt.device))
+        ctx.save_for_backward(sort, slot_src, valid)
+        ctx.shape = (xt.shape[0], K)
+        return buf
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        sort, slot_src, valid = ctx.saved_tensors
+        T, K = ctx.shape
+        E, C, D = dbuf.shape
+        # each sorted pair's row: the slot that holds it, or 0 (dropped)
+        rows = torch.zeros((T * K, D), dtype=dbuf.dtype, device=dbuf.device)
+        live = valid.reshape(-1)
+        rows[slot_src.reshape(-1)[live]] = dbuf.reshape(E * C, D)[live]
+        # each token's K pairs in sorted order, added in that order
+        rank = torch.empty_like(sort)
+        rank[sort] = torch.arange(T * K, device=sort.device)
+        picked = rows[torch.sort(rank.reshape(T, K), dim=1).values]      # (T, K, D)
+        dx = picked[:, 0]
+        for j in range(1, K):
+            dx = dx + picked[:, j]
+        return dx, None, None, None, None
+
+
 def dispatch(xt: torch.Tensor, idx: torch.Tensor, C: int, E: int):
     """One shard: the (E, C, D) expert buffer, gathered slot by slot.
 
     Returns ``(buf, sort, pos)``: ``sort`` orders the T*K token-expert
     pairs by expert (stable), ``pos`` is each sorted pair's capacity slot
-    (-1 where it is dropped).
+    (-1 where it is dropped).  Differentiable in ``xt`` (:class:`_Dispatch`).
     """
+    sort, pos, slot_src, valid = _route_pairs(idx, C, E)
+    return _Dispatch.apply(xt, sort, slot_src, valid, idx.shape[1]), sort, pos
+
+
+def _combine_rows(out_e, sort, pos, idx):
+    """(T, K, D): each token's K expert rows in its top-k order (0 where
+    the pair was dropped)."""
     T, K = idx.shape
-    dev = xt.device
-    flat_e = idx.reshape(-1)
-    sort = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[sort]
-    bounds = torch.searchsorted(sorted_e, torch.arange(E + 1, device=dev))
-    start, end = bounds[:-1], bounds[1:]
-    pos_in_group = torch.arange(T * K, device=dev) - start[sorted_e]
-    keep = pos_in_group < C
-    slot_src = start[:, None] + torch.arange(C, device=dev)[None, :]       # (E, C)
-    valid = slot_src < end[:, None]
-    src_tok = sort[torch.clamp(slot_src, 0, T * K - 1)] // K
-    buf = torch.where(valid[..., None], xt[src_tok], torch.zeros((), dtype=xt.dtype, device=dev))
-    pos = torch.where(keep, pos_in_group, torch.full_like(pos_in_group, -1))
-    return buf, sort, pos
-
-
-def combine(out_e: torch.Tensor, sort: torch.Tensor, pos: torch.Tensor,
-            idx: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """One shard: each token's kept expert rows, mixed by its gates → (T, D)."""
-    T, K = gate.shape
     sorted_e = idx.reshape(-1)[sort]
     keep = pos >= 0
     rows = out_e[sorted_e, torch.where(keep, pos, torch.zeros_like(pos))]
     rows = torch.where(keep[:, None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-    rows = rows[torch.argsort(sort)].reshape(T, K, -1).to(torch.float32)
-    g = gate.to(out_e.dtype).to(torch.float32)
-    y = rows[:, 0] * g[:, 0, None]
-    for k in range(1, K):                       # the K rows in order, in f32
-        y = y + rows[:, k] * g[:, k, None]
-    return y.to(out_e.dtype)
+    return rows[torch.argsort(sort)].reshape(T, K, -1)
+
+
+class _Combine(torch.autograd.Function):
+    """The gate-weighted mix of each token's expert rows, with the
+    reference's ``_combine_one_bwd``: ``d_gate`` from the recomputed rows
+    times ``dy`` in f32, cast to the gate's dtype; ``d_out_e`` a gather of
+    ``dy * bf16(gate)`` (bf16) into the live slots, 0 elsewhere."""
+
+    @staticmethod
+    def forward(ctx, out_e, sort, pos, idx, gate):
+        T, K = gate.shape
+        rows = _combine_rows(out_e, sort, pos, idx).to(torch.float32)
+        g = gate.to(out_e.dtype).to(torch.float32)
+        y = rows[:, 0] * g[:, 0, None]
+        for k in range(1, K):                       # the K rows in order, in f32
+            y = y + rows[:, k] * g[:, k, None]
+        ctx.save_for_backward(out_e, sort, pos, idx, gate)
+        return y.to(out_e.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        out_e, sort, pos, idx, gate = ctx.saved_tensors
+        T, K = gate.shape
+        E, C, D = out_e.shape
+        rows = _combine_rows(out_e, sort, pos, idx)
+        d_gate = (rows.to(torch.float32) * dy.to(torch.float32)[:, None, :]).sum(-1)
+        d_rows = (dy[:, None, :] * gate.to(dy.dtype)[..., None]).reshape(T * K, D)
+        keep = (pos >= 0)[:, None]
+        d_sorted = torch.where(keep, d_rows[sort], torch.zeros((), dtype=dy.dtype,
+                                                              device=dy.device))
+        _, slot_src, valid = _slots(idx.reshape(-1)[sort], E, C, T * K)
+        d_out_e = torch.where(valid[..., None], d_sorted[slot_src],
+                              torch.zeros((), dtype=dy.dtype, device=dy.device))
+        return d_out_e.to(out_e.dtype), None, None, None, d_gate.to(gate.dtype)
+
+
+def combine(out_e: torch.Tensor, sort: torch.Tensor, pos: torch.Tensor,
+            idx: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """One shard: each token's kept expert rows, mixed by its gates → (T, D).
+    Differentiable in ``out_e`` and ``gate`` (:class:`_Combine`)."""
+    return _Combine.apply(out_e, sort, pos, idx, gate)
 
 
 def _experts(we, buf: torch.Tensor) -> torch.Tensor:
