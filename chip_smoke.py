@@ -15,7 +15,10 @@ without printing the final line:
    decode and the index pass, both K1's self-synchronising kernel), and
    against the chain baseline (one thread a chunk), plus a corrupted
    payload that must raise at a one-shot decode and at a feed's build; K2 (plane consumer), all four
-   variants, at a 768x3072 leaf's size; K3 (plane producer), all four
+   variants, at a 768x3072 leaf's size, at a ragged size, across its
+   largest tile and as misaligned plane views, each on the kernel path
+   its plan names (bulk copies, 16-byte groups or elements), with the
+   kernel's registers and shared memory; K3 (plane producer), all four
    variants with their histograms, at the same size; K7 (Huffman
    bit-pack) on the exponent and mantissa planes of a 3072x768 bf16 leaf
    at 131,072-symbol chunks under three tables, plus a chunk that expands
@@ -497,29 +500,111 @@ def phase_k1(dev):
     return err
 
 
+def k2_path(fn, run, planes, base, itemsize, dev) -> str:
+    """Launch ``run`` (one K2/K11 launch counted on ``fn``) once and name
+    the path it took, from ``fn.launches_by_path``, with the plan's split
+    and the shared memory a block asked for."""
+    import torch
+
+    from repro_torch.kernels.fused_unplane import _unplane_plan, smem_bytes
+
+    before = dict(fn.launches_by_path)
+    run()
+    torch.cuda.synchronize()
+    took = [k for k, v in fn.launches_by_path.items() if v != before[k]]
+    if len(took) != 1:
+        raise AssertionError(f"{fn.__name__}: one launch counted on paths {took}")
+    ptrs = [t.data_ptr() for t in planes] + ([] if base is None else [base.data_ptr()])
+    plan = _unplane_plan(planes[0].numel(), itemsize, base is not None,
+                         all(p % 16 == 0 for p in ptrs),
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.path != took[0]:
+        raise AssertionError(f"{fn.__name__}: took the {took[0]} path, the plan names "
+                             f"{plan.path}")
+    smem = smem_bytes(itemsize, base is not None, plan.tile) if plan.tiles else 0
+    return (f"{took[0]} ({plan.tiles} tiles of {plan.tile}, {plan.vec_elems} in groups of 16, "
+            f"{plan.tail} alone; {smem} B of shared memory a block)")
+
+
+def kernel_resources(name: str) -> list:
+    """Registers and static shared memory of each kernel in the package's
+    built library ``name`` (``cuobjdump --dump-resource-usage``, the
+    toolkit's, beside ``nvcc``), one line a kernel; the library is built
+    first when missing."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    lib = _build.build([name])[name]
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "--dump-resource-usage", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    lines, fn = [], None
+    for line in text.splitlines():
+        if line.strip().startswith("Function "):
+            m = re.search(r"([a-z_]*kernel)(?:ILi(\d+)ELb(\d))?", line)
+            fn = m.group(1) + (f"<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"
+                               if m.group(2) else "") if m else line.strip()
+        elif fn and "REG:" in line:
+            lines.append(f"{fn}: {line.strip()}")
+            fn = None
+    return lines
+
+
 def phase_k2(dev):
-    """K2 kernel vs plain, all four variants, at a 768x3072 leaf's size."""
+    """K2 kernel vs plain, all four variants: at a 768x3072 leaf's size, at
+    a ragged n, at an n that crosses the largest tile, at an n past the
+    most that a bf16 call leaves to the vector path, and with the planes
+    as views at offset n of one buffer (n % 16 != 0: misaligned, as
+    ``_ResidentStream.planes`` cuts them), each launch on the path its plan
+    names; then the kernel's registers and shared memory, on a line of
+    their own."""
     import torch
 
     from repro_torch.kernels import plane_consumer, plane_consumer_plain
+    from repro_torch.kernels.fused_unplane import (
+        MIN_TILE, TILE_IN_BYTES, VECTOR_TILES_PER_SM, smem_bytes,
+    )
 
-    n = 768 * 3072
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    err = 0
+    err, paths = 0, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for itemsize, dt in ((2, torch.int16), (4, torch.int32)):
-        planes = [torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g).to(dev)
-                  for _ in range(itemsize)]
-        base = torch.randint(-2**15 if itemsize == 2 else -2**31,
-                             2**15 if itemsize == 2 else 2**31, (n,),
-                             dtype=dt, generator=g).to(dev)
-        for b in (None, base):
-            k = plane_consumer(planes, b, itemsize=itemsize)
-            p = plane_consumer_plain(planes, b, itemsize=itemsize)
-            torch.cuda.synchronize()
-            if not torch.equal(k, p):
-                raise AssertionError(f"K2 itemsize {itemsize} base={b is not None} disagrees")
-            err = max(err, int((k.to(torch.int64) - p.to(torch.int64)).abs().max()))
-    log(f"K2 vs plain: 4 variants at n={n}, equal")
+        for with_base in (False, True):
+            tile = TILE_IN_BYTES // (itemsize * (2 if with_base else 1))
+            for label, n in (("leaf", 768 * 3072), ("ragged", 100_003),
+                             ("crossing the tile", 3 * tile + 7),
+                             ("past the vector path",
+                              VECTOR_TILES_PER_SM[itemsize] * sms * MIN_TILE + 3 * tile + 7),
+                             ("views at n", 100_003)):
+                planes = [torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g).to(dev)
+                          for _ in range(itemsize)]
+                if label == "views at n":
+                    buf = torch.cat(planes)
+                    planes = [buf[k * n:(k + 1) * n] for k in range(itemsize)]
+                b = (torch.randint(torch.iinfo(dt).min, torch.iinfo(dt).max, (n,), dtype=dt,
+                                   generator=g).to(dev) if with_base else None)
+                out = []
+                path = k2_path(plane_consumer,
+                               lambda: out.append(plane_consumer(planes, b, itemsize=itemsize)),
+                               planes, b, itemsize, dev)
+                p = plane_consumer_plain(planes, b, itemsize=itemsize)
+                torch.cuda.synchronize()
+                key = f"{'bf16' if itemsize == 2 else 'fp32'}{'+base' if with_base else ''} {label}"
+                if not torch.equal(out[0], p):
+                    raise AssertionError(f"K2 {key} (n={n}, {path}) disagrees")
+                want = {"views at n": "element", "past the vector path": "bulk"}
+                if not path.startswith(want.get(label, "bulk" if itemsize == 4 else "vector")):
+                    raise AssertionError(f"K2 {key}: took {path}")
+                err = max(err, max_abs_diff(out[0], p))
+                paths[key] = path
+    log(f"K2 vs plain: 4 variants at the leaf, ragged, crossing the tile, past the vector "
+        f"path and as misaligned views, equal; paths: {json.dumps(paths)}")
+    log(f"K2 unplane_kernel resources (cuobjdump): {'; '.join(kernel_resources('unplane'))}; "
+        f"dynamic shared memory a block at the largest tile: "
+        + ", ".join(f"{'bf16' if w == 2 else 'fp32'}{'+base' if hb else ''} "
+                    f"{smem_bytes(w, hb, TILE_IN_BYTES // (w * (2 if hb else 1)))} B"
+                    for w in (2, 4) for hb in (False, True)))
     return err
 
 
@@ -734,7 +819,7 @@ def phase_main(dev, cfg, zcfg):
     from repro_torch import _util
     from repro_torch.core import device_entropy, zipnn
     from repro_torch.core.options import CodecOptions
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, plane_consumer, reset_launch_counts
     from repro_torch.models import decode_step, init_decode_state
     from repro_torch.models.model import param_shapes
     from repro_torch.serve import (
@@ -867,6 +952,7 @@ def phase_main(dev, cfg, zcfg):
     torch.cuda.synchronize()
     t_ring = time.perf_counter() - t0
     launches = launch_counts()
+    k2_paths = dict(plane_consumer.launches_by_path)
     uploads = device_entropy.transfer_stats()
 
     plain_logits: list = []
@@ -899,8 +985,8 @@ def phase_main(dev, cfg, zcfg):
         f"payload uploads after build {uploads['payload_uploads']}")
     log(f"tokens/s plain_step {tokens / t_plain:.2f} ({t_plain:.3f} s)  "
         f"compressed_ring {tokens / t_ring:.2f} ({t_ring:.3f} s)")
-    log(f"launches per step: {per_step} (main-path run: {launches})")
-    return store, params, launches, per_step, n_steps, build_launches, build_plan
+    log(f"launches per step: {per_step} (main-path run: {launches}; K2 by path {k2_paths})")
+    return store, params, launches, per_step, n_steps, build_launches, build_plan, k2_paths
 
 
 def check_k1_leaves(store, dev):
@@ -1878,13 +1964,14 @@ def measure_k2(dev):
     g = torch.Generator(device="cpu").manual_seed(SEED + 5)
     planes = [torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g).to(dev) for _ in range(2)]
     run = lambda: plane_consumer(planes, itemsize=2)  # noqa: E731
+    path = k2_path(plane_consumer, run, planes, None, 2, dev)
     ms = device_ms(run, 50)
     kernel_ms = profiled_ms(run, r"unplane_kernel", 20)
     plain_ms = device_ms(lambda: plane_consumer_plain(planes, itemsize=2), 10)
     b, by = bound_ms(2 * n + 2 * n, K2_OPS_PER_ELEMENT * n)
-    log(f"K2 at n={n} bf16: kernel {ms:.5f} ms (device time alone, profiler: {kernel_ms}), "
-        f"plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
-    return ms, plain_ms, b, by, kernel_ms
+    log(f"K2 at n={n} bf16, {path}: kernel {ms:.5f} ms (device time alone, profiler: "
+        f"{kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
+    return ms, plain_ms, b, by, kernel_ms, path
 
 
 def layer0_params(dev, seed=SEED):
@@ -2027,6 +2114,9 @@ def measure_ops(dev):
             BYTEGROUP_OPS_PER_BYTE * nbytes, rf"::group_{tag}\(")
         row(f"K11 {tag}", lambda: ungrp(*planes), lambda: ungrp_plain(*planes), nbytes,
             BYTEGROUP_OPS_PER_BYTE * nbytes, r"unplane_kernel")
+        rows[f"K11 {tag}"]["path"] = k2_path(ungrp, lambda: ungrp(*planes), list(planes), None,
+                                             w, dev)
+        log(f"K11 {tag} took the {rows[f'K11 {tag}']['path']} path")
     for tag, w, a, b in (("u16", 2, t["new16"], t["x16"]), ("u32", 4, t["new32"], t["x32"])):
         row(f"K5 {tag}", lambda: K.xor_elems(a, b), lambda: K.xor_elems_plain(a, b), 3 * w * n,
             XOR_OPS_PER_BYTE * 3 * w * n, r"xor_kernel<false>",
@@ -3009,16 +3099,19 @@ def measure_k2_leaf(dev, x, label, reps=20):
     planes, _ = plane_producer_plain(e, itemsize=itemsize, chunk_elems=n)
     pl = [planes[p].contiguous() for p in range(itemsize)]
     k2 = lambda: plane_consumer(pl, itemsize=itemsize)  # noqa: E731
+    path = k2_path(plane_consumer, k2, pl, None, itemsize, dev)
     ms = device_ms(k2, reps)
     kernel_ms = profiled_ms(k2, r"unplane_kernel", 5)
     plain_ms = device_ms(lambda: plane_consumer_plain(pl, itemsize=itemsize), 1)
     if not (torch.equal(k2(), e) and torch.equal(plane_consumer_plain(pl, itemsize=itemsize), e)):
         raise AssertionError(f"K2 disagrees at the {label} leaf")
     b, by = bound_ms(2 * itemsize * n, K2_OPS_PER_ELEMENT * n)
-    log(f"K2 at {label} {tuple(x.shape)} ({x.dtype}): kernel {ms:.5f} ms (device time alone "
-        f"{kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}, {2 * itemsize * n} B)")
+    log(f"K2 at {label} {tuple(x.shape)} ({x.dtype}), {path}: kernel {ms:.5f} ms (device time "
+        f"alone {kernel_ms}), plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}, "
+        f"{2 * itemsize * n} B)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "kernel_ms_profiler": kernel_ms, "bytes": 2 * itemsize * n, "plain_elems": n}
+            "kernel_ms_profiler": kernel_ms, "bytes": 2 * itemsize * n, "plain_elems": n,
+            "path": path}
 
 
 def phase_mamba2(dev, zcfg):
@@ -3675,6 +3768,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     pl = [planes[p].contiguous() for p in range(itemsize)]
     del planes
     k2 = lambda: plane_consumer(pl, itemsize=itemsize)  # noqa: E731
+    k2_path_taken = k2_path(plane_consumer, k2, pl, None, itemsize, dev)
     k2_ms = device_ms(k2, reps)
     k2_kernel_ms = profiled_ms(k2, r"unplane_kernel", 5, leaf_bytes)
     pl_p = [q[:m] for q in pl]
@@ -3685,7 +3779,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
     b, by = bound_ms(2 * itemsize * n, K2_OPS_PER_ELEMENT * n)
     rows["K2"] = {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": b, "bound_by": by,
                   "kernel_ms_profiler": k2_kernel_ms, "bytes": 2 * itemsize * n,
-                  "plain_elems": m}
+                  "plain_elems": m, "path": k2_path_taken}
 
     exp = pl[0]
     del pl, pl_p
@@ -3712,6 +3806,7 @@ def measure_leaf_kernels(dev, feed, x, label, plain_prefix=None, reps=10):
                   "kernel_ms_profiler": k7_kernel_ms, "bytes": k7_bytes, "chunks": c,
                   "segments": c * (-(-chunk // 8192)), "bits": int(nbits.sum()),
                   "plain_chunks": cp}
+    log(f"K2 at {label} {tuple(feed.shape)} took the {k2_path_taken} path")
     for k in ("K2", "K3", "K7"):
         r = rows[k]
         log(f"{k} at {label} {tuple(feed.shape)}: kernel {r['ms']:.5f} ms (device time alone "
@@ -4275,7 +4370,7 @@ def main() -> int:
     phase_k7_sync_free(dev)
     phase_small_reference(dev)
     zcfg = zipnn.ZipNNConfig(backend="huffman")
-    store, params, launches, per_step, n_steps, build_launches, build_plan = phase_main(
+    store, params, launches, per_step, n_steps, build_launches, build_plan, k2_paths = phase_main(
         dev, get_config("repro_gpt_100m"), zcfg
     )
     k1_leaves = check_k1_leaves(store, dev)
@@ -4451,7 +4546,8 @@ def main() -> int:
          "launches": launches["plane_consumer"],
          "launches_per_step": per_step["plane_consumer"], "max_abs_err": k2_err,
          "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2], "bound_by": k2[3],
-         "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4],
+         "library_ms": None, "library": no_library, "kernel_ms_profiler": k2[4], "path": k2[5],
+         "launches_by_path": k2_paths,
          "launches_file": files["launches"]["plane_consumer"],
          "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"],
          "launches_restore_then_prefill": ckpt["prefill_launches"]["plane_consumer"],

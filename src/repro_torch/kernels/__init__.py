@@ -128,3 +128,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_path"):     # K2 and K11: launches by kernel path
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)

@@ -127,9 +127,12 @@ def check(name: str, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({text})")
 
 
-def count_launch(fn) -> None:
-    """Add one to a wrapper's ``launches``.  Frames of the file engine and
-    saves of the checkpoint manager launch from worker threads, and
+def count_launch(fn, path: Optional[str] = None) -> None:
+    """Add one to a wrapper's ``launches`` (and to ``launches_by_path[path]``
+    when the wrapper counts its kernel's paths).  Frames of the file engine
+    and saves of the checkpoint manager launch from worker threads, and
     ``+=`` on an attribute is not atomic."""
     with _count_lock:
         fn.launches += 1
+        if path is not None:
+            fn.launches_by_path[path] += 1

@@ -125,6 +125,8 @@ def ungroup_fp32(*planes: torch.Tensor) -> torch.Tensor:
 
 for _fn in (bytegroup_bf16, bytegroup_fp32, ungroup_bf16, ungroup_fp32):
     _fn.launches = 0
+for _fn in (ungroup_bf16, ungroup_fp32):                  # K2's kernel: counted by path
+    _fn.launches_by_path = dict.fromkeys(fused_unplane.PATHS, 0)
 
 
 def bytegroup_bf16_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

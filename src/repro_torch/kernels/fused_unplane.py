@@ -12,21 +12,82 @@ int32 for 4 (the bits of uint16/uint32; callers view them as
 bf16/fp16/fp32).  ``base``, when given, is ``n`` elements of the same
 dtype, XORed in for a delta stream.  Any ``n`` works: there is no row-block
 padding.
+
+A launch takes one of three paths, decided on the host by
+:func:`_unplane_plan` and counted in the wrapper's ``launches_by_path``:
+``"bulk"`` (whole tiles through the kernel's pipeline of bulk copies, the
+ragged remainder by 16-byte groups and then by element), ``"vector"`` (a
+call too small to fill the pipeline: groups and elements) and
+``"element"`` (some pointer is not 16-byte aligned: every element alone).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from . import _build
 
-__all__ = ["ELEM_DTYPES", "plane_consumer", "plane_consumer_plain"]
+__all__ = ["ELEM_DTYPES", "PATHS", "plane_consumer", "plane_consumer_plain"]
 
 ELEM_DTYPES = {2: torch.int16, 4: torch.int32}
+PATHS = ("bulk", "vector", "element")
+
+# The bulk pipeline's tiles (kernels/unplane_launch_sweep.py chose them on
+# an H100).  A tile carries at most TILE_IN_BYTES of planes, and of base,
+# into a shared-memory stage (csrc/unplane.cu holds the same bound).  A
+# call is cut into whole waves of WAVE_TILES tiles for each SM, with tiles
+# as large as that allows, so that every persistent block gets the same
+# number of tiles, down to MIN_TILE elements a tile; a call of more than
+# BIG_WAVES waves takes the largest tile (its last, partial wave is then
+# a small share).  A call of fewer than VECTOR_TILES_PER_SM[itemsize]
+# MIN_TILE tiles for each SM fills no pipeline: it takes the vector path
+# (16-element groups), which the sweep read faster there at bf16; at fp32
+# the pipeline was faster down to a 768x768 leaf.  This rule is internal:
+# no option or environment variable sets it.
+TILE_IN_BYTES = 32 << 10
+MIN_TILE = 1 << 10
+WAVE_TILES = 32
+BIG_WAVES = 8
+VECTOR_TILES_PER_SM = {2: 24, 4: 0}
+
+
+class Plan(NamedTuple):
+    """How one launch splits its ``n`` elements, in order: ``tiles`` whole
+    tiles of ``tile`` elements, ``vec_elems`` elements in 16-element
+    groups, then ``tail`` elements one by one."""
+
+    tiles: int
+    tile: int
+    vec_elems: int
+    tail: int
+
+    @property
+    def path(self) -> str:
+        return "bulk" if self.tiles else ("vector" if self.vec_elems else "element")
+
+
+def _unplane_plan(n: int, itemsize: int, has_base: bool, aligned: bool, sms: int) -> Plan:
+    """The split of a launch over ``n`` elements on a card of ``sms`` SMs;
+    ``aligned``: every plane, the base and the output start on 16 bytes
+    (bulk copies and 16-byte loads need it)."""
+    if not aligned:
+        return Plan(0, 0, 0, n)
+    if n < max(MIN_TILE, VECTOR_TILES_PER_SM[itemsize] * sms * MIN_TILE):
+        return Plan(0, 0, n - n % 16, n % 16)
+    wave = WAVE_TILES * sms
+    largest = TILE_IN_BYTES // (itemsize * (2 if has_base else 1)) // 16 * 16
+    waves = max(1, -(-n // (largest * wave)))
+    if waves > BIG_WAVES:
+        tile, tiles = largest, n // largest
+    else:
+        tile = max(n // (waves * wave) // 16 * 16, MIN_TILE)
+        tiles = min(n // tile, waves * wave)
+    rest = n - tiles * tile
+    return Plan(tiles, tile, rest - rest % 16, rest % 16)
 
 
 def _check_args(planes, base, itemsize) -> int:
@@ -55,11 +116,24 @@ def _check_args(planes, base, itemsize) -> int:
 @functools.cache
 def _launcher():
     fn = _build.load("unplane").unplane_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    )
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(itemsize: int, has_base: bool, tile: int) -> int:
+    """The dynamic shared memory a block of a launch with tiles of ``tile``
+    elements asks for (the kernel's stages), from the built library."""
+    fn = _build.load("unplane").unplane_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(itemsize, int(has_base), tile))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def plane_consumer(
@@ -78,24 +152,31 @@ def plane_consumer(
 
 
 plane_consumer.launches = 0
+plane_consumer.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def launch(fn, planes, base, itemsize, n) -> torch.Tensor:
-    """Launch the kernel on ``n`` checked elements and count it on ``fn``;
-    K11 (``bytegroup.ungroup_*``) launches it without a base."""
+    """Launch the kernel on ``n`` checked elements and count it, and its
+    path, on ``fn``; K11 (``bytegroup.ungroup_*``) launches it without a
+    base."""
     dev = planes[0].device
     if dev.type != "cuda":
         raise ValueError(f"{fn.__name__}: unsupported device {dev}")
     out = torch.empty(n, dtype=ELEM_DTYPES[itemsize], device=dev)
     if n == 0:
         return out
-    ptrs = [p.data_ptr() for p in planes] + [None] * (4 - itemsize)
+    ptrs = [p.data_ptr() for p in planes]
+    if base is not None:
+        ptrs.append(base.data_ptr())
+    aligned = all(p % 16 == 0 for p in ptrs + [out.data_ptr()])
+    plan = _unplane_plan(n, itemsize, base is not None, aligned, _sm_count(dev.index))
     rc = _launcher()(
-        *ptrs, None if base is None else base.data_ptr(), out.data_ptr(),
-        n, itemsize, torch.cuda.current_stream(dev).cuda_stream,
+        *ptrs[:itemsize], *([None] * (4 - itemsize)), None if base is None else ptrs[-1],
+        out.data_ptr(), n, itemsize, plan.tiles, plan.tile,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("unplane", rc, f"{fn.__name__} launch")
-    _build.count_launch(fn)
+    _build.count_launch(fn, plan.path)
     return out
 
 
