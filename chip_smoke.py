@@ -62,7 +62,17 @@ without printing the final line:
    XOR delta's changed bytes (Fig. 8a) equal to numpy's count, and for
    layer 0's 9 leaves ``ops.huffman_encode_chunks`` of the exponent plane
    equal to the host encoder's bytes; one ``torch.profiler`` session over
-   the pass sums its kernels' device time;
+   the pass sums its kernels' device time.  Then the statistics
+   (``core.stats``) over the same 108 leaves on the card: exponent
+   histograms, plane reports, ``theoretical_ratio`` of the largest leaf,
+   ``classify_model``, ``byte_entropy`` of a plane and Fig. 2 over the
+   whole model, their K4 and K9 launches against the plan, each result
+   equal (histograms and floats) to the same function over the downloaded
+   leaves on the CPU; and the baselines (``core.baselines``: zlib 6 and 1,
+   Huffman-only, fast-LZ, EE+zlib; on the host, ``ee_zlib`` of the card
+   tensor with K4's planes) over one 3072x768 leaf, their bytes from the
+   card tensor equal to the host bytes', ratio and MB/s beside ZipNN's on
+   the card for the same bytes;
 9. fp32: the f32 copy of layers 0-1 of the stacks (cut to two layers only
    to bound the host side's time) encoded on the card must equal the
    host's blobs and round-trip bit-exactly;
@@ -86,7 +96,14 @@ without printing the final line:
     moments for every parameter, three async saves on the card
     (``base_every=3``: base, delta, delta; the state updated in place
     right after each save returns), then ``restore(device_resident=True)``
-    must equal the last state bit for bit; the same saves of layers 0-1
+    must equal the last state bit for bit; ``shard_restore`` of the same
+    step onto a (1, 1) ``DeviceMesh("cuda")`` (a one-process NCCL group on
+    an in-memory store, destroyed after) under ``train_state_specs``: every
+    leaf a DTensor with its spec's placements and ``full_tensor()`` equal
+    bit for bit to the restore's, K1's one-shot decode and K2 launched as
+    in the restore, no more bytes copied to the host than the restore's
+    own reads (from a profiler trace of each), its seconds beside the
+    restore's; the same saves of layers 0-1
     of the stacks and their moments on the card and on the host must write
     equal bytes.  The main path of the forward pass: ``make_prefill`` over
     the params that restore just made on the card (K1's one-shot decode and
@@ -1396,9 +1413,10 @@ def chunk_methods(directory, step):
 
 
 def adamw_state(dev, params, seed):
-    """``{"params": copy of params, "opt": {"m", "v", "step"}}``: fp32
-    moments after a few EMA steps (the reference's AdamWConfig: b1 0.9,
-    b2 0.95) over seeded gradients of scale 1e-3, and the step count."""
+    """A train state ``{"params": copy of params, "opt": {"m", "v"},
+    "step"}`` (the layout of ``train.init_train_state``): fp32 moments
+    after a few EMA steps (the reference's AdamWConfig: b1 0.9, b2 0.95)
+    over seeded gradients of scale 1e-3, and the int32 step count."""
     import torch
 
     from repro_torch import _util
@@ -1407,8 +1425,8 @@ def adamw_state(dev, params, seed):
     state = {
         "params": _util.tree_map(lambda t: t.clone(), params),
         "opt": {"m": _util.tree_map(lambda t: torch.zeros(t.shape, device=dev), params),
-                "v": _util.tree_map(lambda t: torch.zeros(t.shape, device=dev), params),
-                "step": torch.tensor(0, device=dev)},
+                "v": _util.tree_map(lambda t: torch.zeros(t.shape, device=dev), params)},
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
     for _ in range(3):
         train_step(state, gen)
@@ -1431,7 +1449,7 @@ def train_step(state, gen):
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         p.copy_((p.float() + 1e-4 * torch.randn(p.shape, generator=gen, device=p.device))
                 .to(p.dtype))
-    state["opt"]["step"].add_(1)
+    state["step"].add_(1)
 
 
 def _run_saves(directory, dev, zcfg, states, backend, update=None):
@@ -1529,9 +1547,12 @@ def phase_checkpoint(dev, zcfg, params):
             raise AssertionError(f"the prefill launched codec kernels: {restore_launches} -> "
                                  f"{prefill_launches}")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             mgr.restore(device_resident=True)
             torch.cuda.synchronize()
+            t_restore_prof = time.perf_counter() - t0
         restore_device = device_breakdown(prof)
+        restore_copies = memcpy_bytes(prof, "restore_trace")
         got, want = _util.tree_flatten_with_keys(tree), _util.tree_flatten_with_keys(state)
         if step != 2 or [k for k, _ in got] != [k for k, _ in want]:
             raise AssertionError(f"restore gave step {step} with keys {[k for k, _ in got][:5]}")
@@ -1539,6 +1560,9 @@ def phase_checkpoint(dev, zcfg, params):
             if not (a.device == dev and a.dtype == b.dtype and a.shape == b.shape and torch.equal(
                     a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))):
                 raise AssertionError(f"restored {k} differs from the saved state")
+        # this slice's path: the same step restored onto a (1, 1) card mesh
+        shard = check_shard_restore(dev, mgr, tree, restore_launches, restore_copies,
+                                    t_restore_prof)
         for name, n in ((k, save_launches[k]) for k in ("plane_producer", "bitpack_encode_chunks")):
             if not n:
                 raise AssertionError(f"{name} never launched in the card saves")
@@ -1580,10 +1604,95 @@ def phase_checkpoint(dev, zcfg, params):
         f"disk per save card {[round(b, 4) for _, b in card_t]}, host "
         f"{[round(b, 4) for _, b in host_t]}")
     return {"save_launches": save_launches, "restore_launches": restore_launches,
+            "shard_restore": shard,
             "save_s": times, "restore_s": t_restore, "held_bytes": held,
             "save_device_ms": save_device, "restore_device_ms": restore_device,
             "prefill": prefill, "prefill_launches": prefill_launches,
             "peak_card_bytes": max(prefill_peak, torch.cuda.max_memory_allocated(dev))}
+
+
+def memcpy_bytes(prof, name):
+    """Bytes each way of the copies in a finished ``torch.profiler``
+    session, from its trace (``build/<name>.json``; the trace's copy
+    events carry their bytes): ``{"DtoH": .., "HtoD": .., "DtoD": ..}``."""
+    path = os.path.join(ROOT, "build", f"{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {"DtoH": 0, "HtoD": 0, "DtoD": 0}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            kind = next((k for k in out if k in e.get("name", "")), None)
+            if kind is not None:
+                out[kind] += int(e.get("args", {}).get("bytes", 0))
+    return out
+
+
+def check_shard_restore(dev, mgr, want_tree, restore_launches, restore_copies, t_restore_prof):
+    """``shard_restore`` of the manager's newest step onto a (1, 1)
+    ``DeviceMesh("cuda")`` under ``train_state_specs``: every leaf a DTensor
+    with the specs' placements, its shard on the card, ``full_tensor()``
+    equal bit for bit to ``restore(device_resident=True)``'s leaf; K1's
+    one-shot decode and K2 launched as the restore's plan; no more bytes
+    copied to the host than the restore's own reads (its cursors), from a
+    profiler trace of each."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import _util
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train import train_state_specs
+
+    with mesh_mod.local_process_group("nccl"):
+        mesh = mesh_mod.make_host_mesh(device_type="cuda")
+        specs = train_state_specs(get_config("repro_gpt_100m"), mesh)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step, tree = mgr.shard_restore(None, mesh, specs)
+            torch.cuda.synchronize()
+            t_shard = time.perf_counter() - t0
+        launches = _path_launches()
+        copies = memcpy_bytes(prof, "shard_restore_trace")
+        got, want = _util.tree_flatten_with_keys(tree), dict(_util.tree_flatten_with_keys(want_tree))
+        if sorted(k for k, _ in got) != sorted(want):
+            raise AssertionError("shard_restore gave another tree than restore")
+        sharded = 0
+        for key, leaf in got:
+            spec = specs
+            for part in key.split("/"):
+                spec = spec[part]
+            w = want[key]
+            if not (isinstance(leaf, DTensor) and leaf.to_local().device == dev
+                    and list(leaf.placements) == sharding.placements(spec, mesh)):
+                raise AssertionError(f"shard_restore: {key} is not laid out as its spec {spec}")
+            full = leaf.full_tensor()
+            if not (full.dtype == w.dtype and full.shape == w.shape and torch.equal(
+                    full.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8))):
+                raise AssertionError(f"shard_restore: {key} differs from restore's")
+            sharded += any(a is not None for a in spec)
+        del tree, got
+    if launches != restore_launches:
+        raise AssertionError(f"shard_restore launches {launches}, the restore's {restore_launches}")
+    if not copies["HtoD"] or copies["DtoH"] > restore_copies["DtoH"]:
+        raise AssertionError(f"shard_restore copied {copies} (the restore alone: "
+                             f"{restore_copies}): a leaf went to the host")
+    raw = sum(t.numel() * t.element_size() for t in want.values())
+    log(f"shard_restore of step {step} onto a (1, 1) DeviceMesh('cuda') under "
+        f"train_state_specs: {len(want)} leaves as DTensors with their specs' placements "
+        f"({sharded} with a mesh axis in the spec), each full_tensor() equal bit for bit to "
+        f"restore(device_resident=True); {t_shard:.3f} s against the restore's "
+        f"{t_restore_prof:.3f} s, both under the CUDA profiler; launches {launches} (the "
+        f"restore's plan); copies {copies} against the restore's {restore_copies} "
+        f"({raw} B of leaves: none went to the host)")
+    return {"step": step, "seconds": t_shard, "restore_seconds": t_restore_prof,
+            "launches": launches, "copies": copies, "restore_copies": restore_copies,
+            "leaves": len(want), "sharded_specs": sharded}
 
 
 def ops_inputs(dev):
@@ -1765,6 +1874,141 @@ def phase_ops_path(dev, cfg, params, news):
     else:
         log("ops path device time: not measured (the profiler session recorded none)")
     return launches
+
+
+def _same_stats(label, got, want):
+    """Two results of one stats function (dicts, lists of dicts, floats,
+    strings; histograms as numpy arrays) equal entry for entry."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: keys {sorted(got)} against {sorted(want)}")
+        for k in want:
+            _same_stats(f"{label}[{k}]", got[k], want[k])
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {len(got)} entries against {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_stats(f"{label}[{i}]", a, b)
+    elif isinstance(want, np.ndarray):
+        if not (isinstance(got, np.ndarray) and np.array_equal(got, want)):
+            raise AssertionError(f"{label}: the card's counts differ from the CPU's")
+    elif got != want or type(got) is not type(want):
+        raise AssertionError(f"{label}: the card's {got!r} against the CPU's {want!r}")
+
+
+def phase_stats(dev, cfg, params, zcfg):
+    """The statistics (``core.stats``) over the main path's 108 stacked
+    leaves on the card (K4 planes, K9 counts), each result equal to the
+    same function over the downloaded leaves on the CPU; then the
+    baselines (``core.baselines``) over one 3072x768 leaf against ZipNN's
+    ratio and speed on the same bytes (paper Table 3 in miniature)."""
+    import torch
+
+    from repro_torch import _util
+    from repro_torch.core import baselines, bitlayout, stats, zipnn
+    from repro_torch.core.options import CodecOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    layout = bitlayout.layout_for("bfloat16")
+    leaves = [stack[i] for i in range(cfg.n_layers) for stack in _util.tree_leaves(params["layers"])]
+    n = len(leaves)
+    big = max(range(n), key=lambda i: leaves[i].numel())
+    largest = leaves[big]
+    whole = torch.cat([t.reshape(-1) for t in leaves])          # Fig. 2 over the whole model
+
+    def run(xs, model):
+        return {"exponent_histogram": [stats.exponent_histogram(x) for x in xs],
+                "plane_report": [stats.plane_report(x) for x in xs],
+                "theoretical_ratio": stats.theoretical_ratio(xs[big]),
+                "classify_model": stats.classify_model(xs),
+                "byte_entropy": stats.byte_entropy(stats.kernel_planes(xs[big], layout)[0]),
+                "fig2": stats.exponent_histogram(model)}
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card = run(leaves, whole)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("bytegroup_bf16", "byte_histogram")}
+    # per leaf: exponent_histogram K4 + K9, plane_report K4 + 2 K9; then
+    # theoretical_ratio K4 + 2 K9, classify_model K4 + K9 on each of the 8
+    # largest leaves, byte_entropy of a plane K4 + K9, Fig. 2 K4 + K9
+    plan = {"bytegroup_bf16": 2 * n + 1 + 8 + 1 + 1, "byte_histogram": 3 * n + 2 + 8 + 1 + 1}
+    if launches != plan or any(v for k, v in counts.items() if k not in plan):
+        raise AssertionError(f"stats launches {counts}, plan {plan}")
+    host = [t.cpu() for t in leaves]
+    t0 = time.perf_counter()
+    cpu = run(host, whole.cpu())
+    t_cpu = time.perf_counter() - t0
+    _same_stats("stats", card, cpu)
+    del whole
+    fig2 = card["fig2"]
+    per_leaf = card["exponent_histogram"]
+    ct = zipnn.compress_array(largest, zcfg, options=CodecOptions(threads=-1, backend="device"),
+                              device=dev)
+    log(f"stats ({n} stacked leaves of repro_gpt_100m on the card, K4 planes and K9 counts, "
+        f"{t_card:.3f} s; the same functions over the downloaded leaves on the CPU "
+        f"{t_cpu:.3f} s, every histogram and float equal): Fig. 2 over the whole model "
+        f"{fig2['distinct_values']} distinct exponents ({fig2['min_exp']}-{fig2['max_exp']}), "
+        f"top-12 mass {fig2['top12_mass']!r}; per leaf {min(h['distinct_values'] for h in per_leaf)}"
+        f"-{max(h['distinct_values'] for h in per_leaf)} distinct, top-12 mass "
+        f"{min(h['top12_mass'] for h in per_leaf)!r}-{max(h['top12_mass'] for h in per_leaf)!r}; "
+        f"classify_model {card['classify_model']!r}; theoretical_ratio of the largest leaf "
+        f"{tuple(largest.shape)} {card['theoretical_ratio']!r}% beside its ZipNN ratio "
+        f"{100.0 * len(ct.blob) / (largest.numel() * 2)!r}%; exponent plane entropy "
+        f"{card['byte_entropy']!r} bits; launches {launches}, plan {plan}")
+
+    # the baselines, on the host, over one 3072x768 leaf's bytes
+    leaf = next(t for t in leaves if tuple(t.shape) == LEAF)
+    raw = leaf.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+    rows = {}
+    for name, fn in baselines.BASELINES.items():
+        if fn(leaf) != fn(raw):
+            raise AssertionError(f"baseline {name}: a card tensor's bytes differ from the host's")
+        size, t_c = baselines.run_baseline(name, raw)
+        out, t_d = baselines.decompress_time(name, raw)
+        if out != raw:
+            raise AssertionError(f"baseline {name} does not round-trip")
+        rows[name] = (100.0 * size / len(raw), len(raw) / 1e6 / t_c, len(raw) / 1e6 / t_d)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ee_card = baselines.ee_zlib(leaf, "bfloat16")
+    t_ee_card = time.perf_counter() - t0
+    if launch_counts()["bytegroup_bf16"] != 1:
+        raise AssertionError("ee_zlib of a card tensor did not split its planes with K4")
+    t0 = time.perf_counter()
+    ee_host = baselines.ee_zlib(raw, "bfloat16")
+    t_ee_host = time.perf_counter() - t0
+    if ee_card != ee_host:
+        raise AssertionError("ee_zlib of the card tensor differs from the host bytes' blob")
+    rows["ee_zlib (K4 on the card)"] = (100.0 * len(ee_card) / len(raw), len(raw) / 1e6 / t_ee_card,
+                                        None)
+    rows["ee_zlib (host)"] = (100.0 * len(ee_host) / len(raw), len(raw) / 1e6 / t_ee_host, None)
+    opts = CodecOptions(threads=-1, backend="device")
+    zipnn.compress_array(leaf, zcfg, options=opts, device=dev)            # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ct = zipnn.compress_array(leaf, zcfg, options=opts, device=dev)
+    torch.cuda.synchronize()
+    t_zc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = zipnn.decompress_array(ct, zcfg, device_resident=True, device=dev)
+    torch.cuda.synchronize()
+    t_zd = time.perf_counter() - t0
+    if not torch.equal(back.view(torch.int16), leaf.view(torch.int16)):
+        raise AssertionError("ZipNN's round trip of the baselines' leaf is not bit-exact")
+    rows["ZipNN (card)"] = (100.0 * len(ct.blob) / len(raw), len(raw) / 1e6 / t_zc,
+                            len(raw) / 1e6 / t_zd)
+    log(f"baselines over one {LEAF[0]}x{LEAF[1]} bf16 leaf ({len(raw)} B; the baselines run "
+        f"on the host, ZipNN encodes and decodes on the card): ratio %, compress MB/s, "
+        f"decompress MB/s: {json.dumps({k: [round(v, 3) if v is not None else None for v in r] for k, r in rows.items()})}; "
+        f"every baseline's bytes from the card tensor equal the host bytes'")
+    return {"launches": launches, "plan": plan, "seconds": t_card, "cpu_seconds": t_cpu,
+            "fig2": {k: fig2[k] for k in ("distinct_values", "top12_mass", "min_exp", "max_exp")},
+            "classify_model": card["classify_model"],
+            "theoretical_ratio": card["theoretical_ratio"], "baselines": rows}
 
 
 def k1_serial_forms(args, sync_off, n_out, dev, reps, seg_bits=None, chain=True, plain=True,
@@ -4382,6 +4626,8 @@ def main() -> int:
     ops_errs = phase_ops(dev)
     ops_launches = phase_ops_path(dev, get_config("repro_gpt_100m"), params, news)
     del news
+    # this slice's path: the statistics over the 108 leaves, the baselines
+    stats_ph = phase_stats(dev, get_config("repro_gpt_100m"), params, zcfg)
     phase_fp32(dev, zcfg, params)
     k3_rows = measure_k3(dev, params)
     k3 = k3_rows["bf16"]
@@ -4527,6 +4773,8 @@ def main() -> int:
                           launches_checkpoint_restore=ckpt["restore_launches"][
                               "huffdecode_serial"],
                           launches_restore_then_prefill=ckpt["prefill_launches"][
+                              "huffdecode_serial"],
+                          launches_shard_restore=ckpt["shard_restore"]["launches"][
                               "huffdecode_serial"]),
          "seg_bits_sweep": k1["seg_sweep"], "seg_bits_fastest": k1["seg_fastest"],
          "granite": dict(k1_serial(gk["K1"], gl), shape=W_IN),
@@ -4551,6 +4799,7 @@ def main() -> int:
          "launches_file": files["launches"]["plane_consumer"],
          "launches_checkpoint_restore": ckpt["restore_launches"]["plane_consumer"],
          "launches_restore_then_prefill": ckpt["prefill_launches"]["plane_consumer"],
+         "launches_shard_restore": ckpt["shard_restore"]["launches"]["plane_consumer"],
          "granite": dict(gk["K2"], launches=gl["plane_consumer"], shape=W_IN),
          "moe": moe_rows("K2", "plane_consumer"), "ssm": ssm_rows("K2", "plane_consumer"),
          "vlm_audio": front_rows("K2", "plane_consumer"), "train": train_rows("plane_consumer")},
@@ -4612,6 +4861,9 @@ def main() -> int:
             "kernel_ms_profiler": first["kernel_ms_profiler"],
             "library_kernel_ms_profiler": first["library_kernel_ms_profiler"],
         }
+        if name in ("bytegroup", "byte_histogram"):     # the stats path's launches
+            entry["launches_stats"] = sum(stats_ph["launches"].get(k, 0) for k in counters)
+            entry["launches_stats_plan"] = sum(stats_ph["plan"].get(k, 0) for k in counters)
         if len(variants) > 1:
             entry["variants"] = {v: ops_rows[v] for v in variants}
         if len(replaces) > 1:
@@ -4641,6 +4893,10 @@ def main() -> int:
         "resume": {k: train["resume"][k] for k in ("seconds", "bit_identical", "max_rel_gap")},
         "first_losses": train["first_run"]["losses"], "grad_sync": train["grad_sync"],
         "hold": train["hold"], "olmoe": train["olmoe"], "phase_s": train["phase_s"]}))
+    log("stats and shard_restore summary: " + json.dumps({
+        "stats": {k: v for k, v in stats_ph.items() if k != "baselines"},
+        "baselines_ratio_compress_decompress_mb_s": stats_ph["baselines"],
+        "shard_restore": ckpt["shard_restore"]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

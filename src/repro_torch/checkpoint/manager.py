@@ -25,8 +25,11 @@ save thread waits on an event recorded after those copies on the caller's
 stream before it reads them, on a stream of its own.  The last base and
 the previous save's moments stay where the leaves are, so K3 fuses the XOR
 against a card-resident base; a card save runs K3 and K7, a card restore
-K1 and K2 (:mod:`repro_torch.core.zipnn`).  ``shard_restore`` (a restore
-onto a device mesh) comes with the distributed slice of the port.
+K1 and K2 (:mod:`repro_torch.core.zipnn`).  ``shard_restore`` restores
+onto a ``DeviceMesh``: the restore leaves every leaf on the config's
+device, and ``distributed.sharding.device_put_tree`` lays it out as DTensors
+there, so on the card only compressed bytes cross host → device and
+nothing comes back.
 
 Checkpoint bytes (``manifest.json`` and ``data.bin`` of every step) equal
 the reference implementation's (``repro.checkpoint.manager``) for the
@@ -50,6 +53,7 @@ import torch
 from .. import _util
 from ..core import zipnn
 from ..core.options import CodecOptions
+from ..distributed import sharding
 from ..optim.adamw import MOMENT_KEYS, is_moment_path
 
 __all__ = ["CheckpointConfig", "CheckpointManager"]
@@ -405,6 +409,17 @@ class CheckpointManager:
             except (IOError, OSError, KeyError):
                 continue
         raise FileNotFoundError(f"no valid checkpoint in {self.cfg.directory}")
+
+    def shard_restore(self, step: Optional[int], mesh, specs: PyTree) -> Tuple[int, PyTree]:
+        """:meth:`restore` with ``device_resident=True``, then each leaf laid
+        out on ``mesh`` (a ``DeviceMesh``) per its spec in ``specs`` (a
+        prefix tree of ``sharding.PartitionSpec``; ``None`` leaves a leaf
+        as restored): an elastic rescale, since the saved layout never
+        constrains the restored one.  On the card the restore's decode (K1's
+        one-shot decode, K2) leaves the leaves there and the layout is made
+        device to device."""
+        s, tree = self.restore(step, device_resident=True)
+        return s, sharding.device_put_tree(tree, mesh, specs)
 
     # ------------------------------------------------------------- retention
 

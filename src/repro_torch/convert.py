@@ -17,10 +17,12 @@ import torch
 
 from . import _util
 
-__all__ = ["params_from_numpy", "train_state_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "train_state_from_numpy"]
 
 
-def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
+def tensor_from_numpy(a: Any, dev: torch.device) -> torch.Tensor:
+    """One numpy array (bf16 and fp8 ones included) → a tensor of the same
+    bits on ``dev``."""
     a = np.ascontiguousarray(a)
     name = a.dtype.name
     dt = _util.torch_dtype(name)
@@ -37,7 +39,7 @@ def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
     """Nested dicts of numpy arrays → the same tree of tensors on ``device``."""
     dev = _util.resolve_device(device)
-    return _util.tree_map(lambda a: _leaf(a, dev), tree)
+    return _util.tree_map(lambda a: tensor_from_numpy(a, dev), tree)
 
 
 def train_state_from_numpy(tree: Any, device: Any = "cuda") -> Any:
@@ -46,7 +48,8 @@ def train_state_from_numpy(tree: Any, device: Any = "cuda") -> Any:
     → the same state on ``device``: params as :func:`params_from_numpy`
     makes them, f32 moments, a 0-d int32 step."""
     dev = _util.resolve_device(device)
-    opt = {k: _util.tree_map(lambda a: _leaf(np.asarray(a, np.float32), dev), tree["opt"][k])
+    opt = {k: _util.tree_map(lambda a: tensor_from_numpy(np.asarray(a, np.float32), dev),
+                             tree["opt"][k])
            for k in ("m", "v")}
     return {"params": params_from_numpy(tree["params"], dev), "opt": opt,
             "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=dev)}

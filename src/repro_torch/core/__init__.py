@@ -1,13 +1,16 @@
 """Host codec (bit layouts, canonical Huffman, chunked planes, ZNN1
 container), the ZNS1 file engine, the device encode path (K3 plane
 producer, K7 Huffman bit-pack) and the device decode path (K1 Huffman
-decode, K2 plane consumer) on PyTorch tensors.
+decode, K2 plane consumer) on PyTorch tensors; the compressibility
+statistics (K4/K9 counts on the tensor's device) and the baselines ZipNN is
+evaluated against.
 
 The codec API is re-exported here under the reference's names
-(``repro.core.__all__``); the names of that list the port has no
-counterpart for yet are in :data:`UNPORTED`."""
+(``repro.core.__all__``); :data:`UNPORTED` lists the names of that list the
+port has no counterpart for (none)."""
 
 from . import (
+    baselines,
     bitlayout,
     codec,
     container,
@@ -17,6 +20,7 @@ from . import (
     engine,
     huffman,
     options,
+    stats,
     zipnn,
 )
 from .bitlayout import LAYOUTS, BitLayout, exponent_view, from_planes, layout_for, to_planes
@@ -43,12 +47,12 @@ from .zipnn import (
     delta_decompress,
     ratio,
 )
+from .stats import byte_entropy, classify_model, exponent_histogram, plane_report
 
-# The reference's statistics (``core/stats.py``) and baselines
-# (``core/baselines.py``), not ported yet.
-UNPORTED = ("byte_entropy", "exponent_histogram", "plane_report", "classify_model", "baselines")
+UNPORTED = ()
 
 __all__ = [
+    "baselines",
     "bitlayout",
     "codec",
     "container",
@@ -58,6 +62,7 @@ __all__ = [
     "engine",
     "huffman",
     "options",
+    "stats",
     "zipnn",
     "UNPORTED",
     "BitLayout", "LAYOUTS", "layout_for", "to_planes", "from_planes",
@@ -68,4 +73,5 @@ __all__ = [
     "compress_bytes", "decompress_bytes", "compress_pytree",
     "decompress_pytree", "delta_compress", "delta_compress_batched",
     "delta_decompress", "ratio",
+    "byte_entropy", "exponent_histogram", "plane_report", "classify_model",
 ]

@@ -1,6 +1,8 @@
-"""Distribution: compressed gradient exchange.  The reference's sharding
-rules and elastic re-sharding come with the distributed slice."""
+"""Distribution: logical-axis sharding rules onto ``DeviceMesh`` and
+DTensor placements, elastic re-sharding (``sharding.device_put_tree``),
+and compressed gradient exchange."""
 
+from . import sharding
 from .grad_sync import GradSync, WireStats, straggler_reissue_plan
 
-__all__ = ["GradSync", "WireStats", "straggler_reissue_plan"]
+__all__ = ["sharding", "GradSync", "WireStats", "straggler_reissue_plan"]

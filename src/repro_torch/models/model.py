@@ -8,8 +8,11 @@ A port of ``repro.models.model``'s ``forward`` / ``loss`` / ``_trunk`` /
 ...)``.  The forward runs each stack's ``*_block_train`` over the stacked
 params' leading axis (split once by ``unbind``) and sums the blocks' aux
 losses; ``cfg.remat`` maps to activation checkpointing around each layer
-where autograd records; the sharding constraints have no numeric effect
-and are dropped.  In decode the
+where autograd records; the sharding constraints (``lshard``) have no
+numeric effect and are not applied, so the forward is bit-identical on a
+mesh or off it.  :func:`param_specs` gives the params' sharding specs
+(``repro_torch.distributed.sharding``), as the reference's
+``Model.param_specs``.  In decode the
 layer loop is a Python loop over the stacked params' leading axis (the
 reference scans it) — ``dense_layers`` then ``moe_layers`` for the MoE
 family — and the cache slot write happens once after it, for all layers.
@@ -33,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import _util
+from ..distributed.sharding import param_pspecs
 from . import attention, blocks, layers, ssm
 
 __all__ = [
@@ -43,6 +47,7 @@ __all__ = [
     "write_caches",
     "param_shapes",
     "param_dtypes",
+    "param_specs",
     "count_params_analytic",
     "init_params",
     "reference_norms",
@@ -237,6 +242,14 @@ def param_dtypes(cfg) -> Dict[str, Any]:
         return torch.float32 if f32 else cfg.dtype
 
     return walk(param_shapes(cfg), ())
+
+
+def param_specs(cfg, mesh=None) -> Dict[str, Any]:
+    """:func:`param_shapes`' tree with each leaf's
+    :class:`~repro_torch.distributed.sharding.PartitionSpec` under the name
+    rules, ZeRO-3 as ``cfg.zero3`` says: the reference's
+    ``Model.param_specs(mesh)``.  It reads shapes only."""
+    return param_pspecs(param_shapes(cfg), zero3=cfg.zero3, mesh=mesh)
 
 
 def count_params_analytic(cfg, active_only: bool = False) -> int:

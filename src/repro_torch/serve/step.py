@@ -9,6 +9,14 @@ the same single cache write after the loop and the same tail (final norm
 :func:`repro_torch.models.decode_step` over the uncompressed params.
 Only where each layer's weights come from differs: the store decodes them
 just ahead of compute.
+
+:func:`inference_param_specs` and :func:`decode_state_specs` are the
+serving layouts on a mesh (``repro_torch.distributed.sharding`` specs):
+attention and dense weights tensor-parallel over 'model' and replicated
+over 'data'; experts E over 'data' × ff over 'model'; caches with the
+batch over 'data' where it divides and, for 'model', kv heads when they
+divide, else the cache length, else head_dim (MLA: the cache length, else
+the latent); SSM states and conv histories by batch and heads.
 """
 
 from __future__ import annotations
@@ -19,9 +27,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import _util
+from ..distributed.sharding import P, map_with_path, mesh_axes_and_sizes
 from ..models.model import (
     block_fn, cache_keys, decode_front, decode_step, decode_tail, forward, layer_plan,
-    write_caches,
+    param_specs, write_caches,
 )
 
 __all__ = [
@@ -30,6 +39,8 @@ __all__ = [
     "make_kv_tiered_serve_step",
     "make_compressed_serve_step",
     "greedy_generate",
+    "inference_param_specs",
+    "decode_state_specs",
 ]
 
 
@@ -44,6 +55,74 @@ def make_prefill(cfg) -> Callable:
         return logits
 
     return prefill
+
+
+def _div(n: int, sizes: Dict[str, int], axis: str) -> bool:
+    return axis in sizes and n % sizes[axis] == 0
+
+
+def inference_param_specs(cfg, mesh) -> Any:
+    """Serving-time param layout: ``model.param_specs`` with the ZeRO-3
+    'data' axis stripped (per-layer all-gathers amortize over a training
+    batch, not over a decoded token); expert leaves E over 'data' × ff
+    over 'model', each where it divides, so expert weights never move."""
+    sizes = mesh_axes_and_sizes(mesh)[1]
+
+    def one(path, spec):                      # a param spec has an entry a dimension
+        nd = len(spec)
+        if "experts/" in path and cfg.n_experts:
+            e_ax = "data" if _div(cfg.n_experts, sizes, "data") else None
+            f_ax = "model" if _div(cfg.moe_d_ff, sizes, "model") else None
+            pad = [None] * (nd - 3)
+            if path.endswith("w_down"):
+                return P(*(pad + [e_ax, f_ax, None]))
+            return P(*(pad + [e_ax, None, f_ax]))
+        # strip the zero3 ('data') axis everywhere else
+        return P(*[None if ax == "data" else ax for ax in spec])
+
+    return map_with_path(one, param_specs(cfg, mesh))
+
+
+def decode_state_specs(cfg, state_tree, mesh) -> Any:
+    """Specs of a decode state (it reads shapes only: a state made on
+    ``device="meta"`` will do).  ``pos`` replicated; ``kv_*`` (L, B, Lc, G,
+    hd): batch over 'data' where it divides, and 'model' on the kv heads
+    when they divide, else on the cache length (length-sharded decode keeps
+    the score product local), else on head_dim; ``mla_*`` (L, B, Lc, r):
+    the cache length, else the latent; ``ssm_state`` (..., B, H, P, N) and
+    ``ssm_conv`` (..., B, W, C) by batch and heads / channels."""
+    sizes = mesh_axes_and_sizes(mesh)[1]
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if path.endswith("pos"):
+            return P()
+        if "kv_" in path:
+            b = "data" if _div(shape[1], sizes, "data") else None
+            if _div(shape[3], sizes, "model"):
+                return P(None, b, None, "model", None)
+            if _div(shape[2], sizes, "model"):
+                return P(None, b, "model", None, None)
+            hd = "model" if _div(shape[4], sizes, "model") else None
+            return P(None, b, None, None, hd)
+        if "mla_" in path:
+            b = "data" if _div(shape[1], sizes, "data") else None
+            if _div(shape[2], sizes, "model"):
+                return P(None, b, "model", None)
+            r = "model" if _div(shape[3], sizes, "model") else None
+            return P(None, b, None, r)
+        if "ssm_state" in path:
+            b = "data" if _div(shape[-4], sizes, "data") else None
+            h = "model" if _div(shape[-3], sizes, "model") else None
+            return P(*([None] * (nd - 4) + [b, h, None, None]))
+        if "ssm_conv" in path:
+            b = "data" if _div(shape[-3], sizes, "data") else None
+            c = "model" if _div(shape[-1], sizes, "model") else None
+            return P(*([None] * (nd - 3) + [b, None, c]))
+        return P(*([None] * nd))
+
+    return map_with_path(one, state_tree)
 
 
 def make_serve_step(cfg) -> Callable:

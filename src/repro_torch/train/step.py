@@ -6,9 +6,10 @@ int32 step, on one device.  The step function takes a state and a batch
 and returns ``(state, metrics)``: gradients come from
 ``torch.autograd.grad`` over the param leaves, and :func:`apply_updates`
 updates params and moments in place, so the returned state holds the
-same tensors (and no autograd graph) with the step advanced.  The
-reference's ``train_state_specs`` and ``batch_pspecs`` are sharding and
-come with the distributed slice of the port.
+same tensors (and no autograd graph) with the step advanced.
+:func:`train_state_specs` and :func:`batch_pspecs` give the state's and a
+batch's sharding specs (``repro_torch.distributed.sharding``), for
+``CheckpointManager.shard_restore`` and ``device_put_tree``.
 """
 
 from __future__ import annotations
@@ -18,10 +19,18 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from .. import _util
+from ..distributed.sharding import P, batch_pspec
 from ..models import model
 from ..optim.adamw import AdamWConfig, apply_updates, init_opt_state
 
-__all__ = ["TrainState", "init_train_state", "loss_and_grads", "make_train_step"]
+__all__ = [
+    "TrainState",
+    "init_train_state",
+    "train_state_specs",
+    "batch_pspecs",
+    "loss_and_grads",
+    "make_train_step",
+]
 
 TrainState = Dict[str, Any]      # {"params": ..., "opt": {"m", "v"}, "step": int32}
 
@@ -34,6 +43,21 @@ def init_train_state(cfg, seed: int = 0, *, device: Any = "cuda") -> TrainState:
     params = model.reference_norms(model.init_params(cfg, seed, device=dev))
     return {"params": params, "opt": init_opt_state(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def train_state_specs(cfg, mesh=None) -> TrainState:
+    """Specs for the whole train state: the params' (``model.param_specs``),
+    the moments mirroring them, the step replicated."""
+    pspecs = model.param_specs(cfg, mesh)
+    return {"params": pspecs, "opt": {"m": pspecs, "v": pspecs}, "step": P()}
+
+
+def batch_pspecs(batch_tree: Any, mesh=None) -> Any:
+    """Each batch leaf's spec: its leading axis over the batch axes of
+    ``mesh`` (``("pod", "data")`` as far as the mesh has them), the rest
+    replicated."""
+    bp = batch_pspec(mesh)
+    return _util.tree_map(lambda leaf: P(*(list(bp) + [None] * (leaf.ndim - 1))), batch_tree)
 
 
 def loss_and_grads(cfg, params, batch):

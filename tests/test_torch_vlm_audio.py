@@ -217,7 +217,10 @@ def test_apply_mrope_matches_reference(case):
     got = layers.apply_mrope(_t(x), torch.from_numpy(thw), 1e6, sections)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == x.shape
     ulps = _bf16_ulps(want, got)
-    assert ulps.max() <= 1 and (ulps > 0).mean() <= ROPE_SHARE, (ulps.max(), (ulps > 0).mean())
+    worst = np.unravel_index(ulps.argmax(), ulps.shape)
+    assert ulps.max() <= 1 and (ulps > 0).mean() <= ROPE_SHARE, (
+        ulps.max(), (ulps > 0).mean(), worst, float(np.asarray(want, np.float32)[worst]),
+        float(got.float()[worst]), thw[worst[:2]].tolist())
 
 
 @pytest.mark.parametrize("sections, hd", list(MROPE_CASES.values()), ids=list(MROPE_CASES))
