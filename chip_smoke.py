@@ -247,7 +247,20 @@ without printing the final line:
     run in one process, since ``data.make_batch`` seeds with
     ``hash(cfg.name)``; ~1.6 GB a save under ``build/chip_train_ckpt``,
     removed at the end;
-21. report: store sizes, build times, tokens/s, file and checkpoint times,
+21. dry-run (``repro_torch.launch.dryrun``, the reference's sharding on
+    fake meshes (``DeviceMesh``) of device type ``cuda``): the mamba2_130m
+    ``decode_32k`` cell on the 16x16 mesh over a ``fake`` group of 256
+    (``status`` ``"ok"``, per-device FLOPs and a fit on the card), and the
+    per-device peak it estimates for phase 20's repro_gpt_100m step at
+    B=8 x 2,048 on a (1, 1) mesh beside the card peak phase 20 measured
+    (it must lie within 0.5-2x);
+22. examples: the four ``examples/torch_*.py`` on the card.  The
+    quickstart's K3/K7 (encode), K1/K2 (decode) and ring launches equal its
+    plan (exact counts, or at least the planned number where the plan says
+    ``>=``), with no HUFF-symbol upload at the device encode and no payload
+    upload a ring step; the hub model and the gradient exchange compress
+    BF16 to under 70%; the training demo trains, resumes and serves;
+23. report: store sizes, build times, tokens/s, file and checkpoint times,
     each phase's seconds and peak card memory, a prefill summary line, a
     train summary line, the ``kernels`` JSON line, and last ``{"ok": true,
     "device": {...}}``.  Each prefill's profiler trace goes to
@@ -411,7 +424,8 @@ def phase_card():
         raise RuntimeError("nvidia-smi reported no card")
     log(smi[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
+        f"total_memory {torch.cuda.get_device_properties(0).total_memory}")
     return smi[0]
 
 
@@ -4589,6 +4603,104 @@ def checkpoint_kind(directory, step):
         return json.load(f)["kind"]
 
 
+def phase_dryrun(dev, train):
+    """The dry-run on fake meshes of device type ``cuda``: the mamba2_130m
+    ``decode_32k`` cell on the 16x16 production mesh, and the per-device
+    peak the dry-run estimates for phase 20's step (repro_gpt_100m at
+    B=TRAIN_B x TRAIN_S on a (1, 1) mesh) beside the card peak measured
+    there."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"dry-run: the cells' memory budget {dryrun.H100_MEMORY_BYTES} B, this card's "
+        f"total_memory {total} B")
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell("mamba2_130m", "decode_32k", multi_pod=False, device_type="cuda",
+                           out_dir=os.path.join(ROOT, "build", "dryrun"))
+    acct, mem = cell["per_device_accounting"], cell["per_device_memory"]
+    if not (cell["status"] == "ok" and cell["chips"] == 256 and acct["flops"] > 0
+            and acct["coll_count"] > 0 and cell["fits"]):
+        raise AssertionError(f"dry-run mamba2_130m decode_32k: {json.dumps(cell)}")
+    t_cell = time.perf_counter() - t0
+    log(f"dry-run mamba2_130m decode_32k on the 16x16 cuda mesh in {t_cell:.1f} s: per device "
+        f"{acct['flops']:.6g} FLOPs, {acct['bytes_accessed']:.6g} bytes accessed, collectives "
+        + json.dumps({k: v for k, v in acct.items() if k.startswith("coll_")})
+        + f", memory {json.dumps(mem)}")
+
+    t0 = time.perf_counter()
+    step = ShapeCell("train_card", "train", TRAIN_S, TRAIN_B)
+    with dryrun.fake_world(1):
+        est = dryrun.trace_costs(get_config("repro_gpt_100m"), step,
+                                 make_host_mesh(device_type="cuda"), "cuda", memory=True)
+    card = train["step"]["peak_card_bytes"]
+    ratio = est["memory"]["peak_hint_bytes"] / card
+    log(f"dry-run peak of repro_gpt_100m's train step at B={TRAIN_B} S={TRAIN_S} on a (1, 1) "
+        f"mesh: {est['memory']['peak_hint_bytes']} B estimated "
+        f"({json.dumps(est['memory'])}) against {card} B measured on the card in phase 20: "
+        f"{ratio:.3f}x ({time.perf_counter() - t0:.1f} s)")
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError(f"dry-run peak {est['memory']['peak_hint_bytes']} B is {ratio:.3f}x "
+                             f"the card's {card} B (outside 0.5-2x)")
+    return {"cell": {"seconds": t_cell, "per_device_accounting": acct,
+                     "per_device_memory": mem},
+            "train_peak": {"estimated_bytes": est["memory"]["peak_hint_bytes"],
+                           "card_bytes": card, "ratio": ratio,
+                           "flops": est["flops"], "bytes_accessed": est["bytes_accessed"]}}
+
+
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _meets(got: int, want) -> bool:
+    """A launch count against its plan: an exact count, or ``">=n"``."""
+    if isinstance(want, str) and want.startswith(">="):
+        return got >= int(want[2:])
+    return got == want
+
+
+def phase_examples(dev):
+    """The four port examples on the card, the quickstart's launches
+    against its plan."""
+    out = {}
+    t0 = time.perf_counter()
+    q = _example("torch_quickstart").main(str(dev))
+    for section, want in q["plan"].items():
+        got = q["launches"][section]
+        bad = {k: (got[k], v) for k, v in want.items() if not _meets(got[k], v)}
+        if bad:
+            raise AssertionError(f"examples: quickstart {section} launches (got, plan): {bad}")
+    if q["payload_uploads"] or q["symbol_uploads"]:
+        raise AssertionError(f"examples: quickstart uploads: payload {q['payload_uploads']}, "
+                             f"symbols {q['symbol_uploads']}")
+    out["quickstart"] = dict(q, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    hub = _example("torch_hub_transfer_sim").main(str(dev))
+    out["hub_transfer_sim"] = dict(hub, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    gs = _example("torch_decentralized_grad_sync").main(str(dev))
+    out["decentralized_grad_sync"] = dict(gs, seconds=time.perf_counter() - t0)
+    if not (hub["ratio_pct"] < 70 and gs["ratio_pct"] < 70):
+        raise AssertionError(f"examples: ratios hub {hub['ratio_pct']}, grad sync "
+                             f"{gs['ratio_pct']}")
+    t0 = time.perf_counter()
+    demo = _example("torch_train_checkpoint_demo").main("cuda", steps=12)
+    out["train_checkpoint_demo"] = dict(demo, seconds=time.perf_counter() - t0)
+    log("examples on the card: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4684,6 +4796,10 @@ def main() -> int:
         raise AssertionError(f"train: kernels of the path never launched: {idle}")
     if tl.get("huffdecode_chain"):
         raise AssertionError("train: the path launched K1's chain baseline")
+    reset_launch_counts()
+    free_card()
+    dry = phase_dryrun(dev, train)
+    examples = phase_examples(dev)
     reset_launch_counts()
 
     def train_rows(counter):
@@ -4893,6 +5009,9 @@ def main() -> int:
         "resume": {k: train["resume"][k] for k in ("seconds", "bit_identical", "max_rel_gap")},
         "first_losses": train["first_run"]["losses"], "grad_sync": train["grad_sync"],
         "hold": train["hold"], "olmoe": train["olmoe"], "phase_s": train["phase_s"]}))
+    log("dry-run and examples summary: " + json.dumps({
+        "dryrun": dry, "examples": {k: {kk: vv for kk, vv in v.items() if kk != "speedup"}
+                                    for k, v in examples.items()}}))
     log("stats and shard_restore summary: " + json.dumps({
         "stats": {k: v for k, v in stats_ph.items() if k != "baselines"},
         "baselines_ratio_compress_decompress_mb_s": stats_ph["baselines"],

@@ -17,8 +17,14 @@ The spec functions take a ``DeviceMesh`` (its ``mesh_dim_names`` and
 ``shape``) or any object with ``axis_names`` and a ``shape`` dict.  The
 "current mesh", which the reference reads from JAX's context, is a
 thread-local here: :func:`use_mesh` sets it beside :func:`axis_rules`.
-:func:`lshard` has no numeric effect and the port's model does not call
-it, so the forward is bit-identical with or without a mesh.
+:func:`lshard` is the reference's ``with_sharding_constraint``: the
+models call it where the reference does, and it lays a DTensor out on the
+current mesh.  On a plain tensor, or without a mesh, it returns its input
+itself, so the models' results off a mesh are bit-identical to what they
+were without it.  :func:`gather_axis` is the port's explicit
+redistribution where DTensor has no rule for a layout (a reshape that
+would cut a head); :func:`product_input` the one before a product (a partial sum, or
+leading dimensions that two mesh axes cut).
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import contextlib
 import re
 import threading
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 __all__ = [
     "DEFAULT_RULES",
@@ -39,6 +47,14 @@ __all__ = [
     "resolve",
     "axis_size",
     "lshard",
+    "is_dtensor",
+    "gather_axis",
+    "product_input",
+    "local_tensor",
+    "from_local_like",
+    "product_output",
+    "grad_laid_out",
+    "laid_out_like",
     "placements",
     "param_pspecs",
     "device_put_tree",
@@ -178,15 +194,163 @@ def placements(spec: Tuple[Any, ...], mesh) -> List[Any]:
 
 def lshard(x, *logical_axes: Optional[str]):
     """Lay a DTensor out by logical axis names on the current mesh; ``x``
-    itself without a mesh, and a plain tensor passes through."""
+    itself without a mesh, and a plain tensor passes through.  A dimension
+    its mesh axes do not divide stays whole (the param rules' guard; XLA
+    would pad it)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    mesh_axes, sizes = mesh_axes_and_sizes(mesh)
+    spec = [resolve(a, mesh_axes) for a in logical_axes]
+    spec = P(*[a if x.shape[i] % _axis_size(a, sizes) == 0 else None for i, a in enumerate(spec)])
+    pl = placements(spec, mesh)
+    if list(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (False without ``torch.distributed``)."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
     from torch.distributed.tensor import DTensor
 
-    mesh = current_mesh()
-    if mesh is None or not isinstance(x, DTensor):
+    return isinstance(x, DTensor)
+
+
+def gather_axis(x, axis: str):
+    """A DTensor replicated over mesh axis ``axis`` (an all-gather of a
+    shard, an all-reduce of a partial sum), every other mesh axis as it
+    was; a plain tensor, or a mesh without ``axis``, passes through."""
+    if not is_dtensor(x):
         return x
-    mesh_axes = mesh_axes_and_sizes(mesh)[0]
-    spec = P(*[resolve(a, mesh_axes) for a in logical_axes])
-    return x.redistribute(mesh, placements(spec, mesh))
+    from torch.distributed.tensor import Replicate
+
+    names = list(x.device_mesh.mesh_dim_names or ())
+    if axis not in names:
+        return x
+    pl = list(x.placements)
+    m = names.index(axis)
+    if pl[m].is_replicate():
+        return x
+    pl[m] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
+
+
+def laid_out_like(x, ref):
+    """A DTensor ``x`` redistributed to ``ref``'s placements (a gradient to
+    its parameter's layout, as GSPMD lays it out for the reference's
+    optimizer); anything else passes through."""
+    if not is_dtensor(x) or not is_dtensor(ref) or list(x.placements) == list(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_tensor(x, grad_placements=None):
+    """A DTensor's local tensor (``to_local``), its gradient taken back in
+    ``grad_placements`` (default: ``x``'s) and made contiguous first: a
+    local product's gradient may come back permuted, and a DTensor view
+    of a non-contiguous local tensor fails."""
+    return _DenseGrad.apply(x.to_local(grad_placements=grad_placements))
+
+
+def from_local_like(t: torch.Tensor, like, placements, *, shape=None):
+    """A local tensor ``t`` made a DTensor on ``like``'s mesh with
+    ``placements`` (unchecked: the caller knows each rank's part).  With
+    ``shape`` the DTensor takes that global shape (an uneven cut's, which
+    DTensor cannot infer) with contiguous strides, ``t`` made contiguous:
+    without them DTensor scales a size-1 dimension's stride by a shard
+    count, and ``matmul`` then no longer folds a (B, 1, D) input into one
+    (B, D) product but expands the weight B times."""
+    from torch.distributed.tensor import DTensor
+
+    if shape is None:
+        return DTensor.from_local(t, like.device_mesh, placements, run_check=False)
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.append(n)
+        n *= size
+    return DTensor.from_local(t.contiguous(), like.device_mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(reversed(stride)))
+
+
+def product_input(x):
+    """A DTensor as a product's input reads it: its partial sums reduced,
+    and every dimension but its first and last whole on each rank (a mesh
+    axis that cuts one of them is gathered).  DTensor runs a product of a
+    (B, S, D) input as one of (B * S, D), and a B and an S cut over two
+    mesh axes join into a strided cut it has no rule for; GSPMD gathers the
+    sequence at the same point.  And DTensor picks a product's layout by
+    its communication alone: left a partial sum, it would gather the
+    weight and repeat the whole product on every rank.  The same holds in
+    the backward, so the input's gradient, a partial sum over the ranks
+    that cut the weight, is reduced to the input's layout right here (the
+    all-reduce of Megatron's tensor parallelism).  A plain tensor passes
+    through."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    last = x.dim() - 1
+    pl = [Replicate() if p.is_partial() or (p.is_shard() and 0 < p.dim < last) else p
+          for p in x.placements]
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return from_local_like(local_tensor(x), x, pl, shape=x.shape)
+
+
+class _GradLaidOut(torch.autograd.Function):
+    """The identity on a DTensor, whose backward lays the gradient out as
+    the forward value was laid out."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.placements = y.placements
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != tuple(ctx.placements):
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_laid_out(y):
+    """``y`` itself, its gradient laid out as ``y`` is (a DTensor that
+    requires a gradient); anything else passes through."""
+    return _GradLaidOut.apply(y) if is_dtensor(y) and y.requires_grad else y
+
+
+def product_output(y):
+    """A product's DTensor output with its partial sums (a row-parallel
+    product's) reduced where they leave the product: left partial, its
+    gradient would come back partial too, and DTensor would gather the
+    weight for the backward product and repeat it on every rank.  The
+    gradient that comes back is laid out as the output was, for the same
+    reason: DTensor picks each backward op's layout from its inputs', and
+    a gradient cut over the batch and the sequence at once (a strided cut
+    once the product flattens them) has no product rule.  A plain tensor
+    passes through."""
+    if not is_dtensor(y):
+        return y
+    if any(p.is_partial() for p in y.placements):
+        from torch.distributed.tensor import Replicate
+
+        y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in y.placements])
+    return grad_laid_out(y)
 
 
 # ---------------------------------------------------------------------------

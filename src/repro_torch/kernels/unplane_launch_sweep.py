@@ -176,9 +176,11 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 25)
     res: dict = {}
     for case, (n, itemsize, with_base) in cases.items():
+        # zipnn: allow(det-random): seeded input of a timing sweep; it feeds no blob
         planes = [torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=g)
                   for _ in range(itemsize)]
         dt = ELEM_DTYPES[itemsize]
+        # zipnn: allow(det-random): seeded input of a timing sweep; it feeds no blob
         base = (torch.randint(torch.iinfo(dt).min, torch.iinfo(dt).max, (n,), dtype=dt,
                               device=dev, generator=g) if with_base else None)
         want = plane_consumer_plain(planes, base, itemsize=itemsize)

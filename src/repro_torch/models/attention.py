@@ -17,7 +17,17 @@ becomes), f32 scores, masked entries set to ``NEG_INF``, the online max,
 sum and correction in f32, ``p`` rounded to the value dtype before the PV
 product (accumulated in f32), and ``acc / max(l, 1e-30)`` rounded to
 bf16.  Its score buffer is one (B, G, rep, q_block, kv_block) f32 block
-at a time.
+at a time; each q block's rows are joined once at the end (``cat``), so
+no tensor is written in place.
+
+The reference's sharding constraints (``lshard``) stand where it has
+them: the decode's scores and context by the cache's layout, MLA's latent
+and heads, MLA decode's length-sharded scores.  On DTensors, where the
+heads do not divide the 'model' axis, the port redistributes explicitly
+(:func:`_split_heads`), and the attention itself runs on each rank's
+local tensors once q, k and v share a layout (:func:`_attend`,
+:func:`gqa_decode`); on a plain tensor each such step is the identity, so
+results off a mesh are bit-identical.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ..distributed.sharding import (axis_size, from_local_like, gather_axis, is_dtensor, local_tensor,
+                                    lshard)
 from . import layers
 
 __all__ = [
@@ -46,6 +58,15 @@ def _bf16_scale(hd: int) -> float:
     return float(torch.tensor(hd ** -0.5, dtype=torch.bfloat16))
 
 
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) → (B, S, n, hd).  A DTensor sharded over 'model' where
+    ``n`` heads do not divide it is first gathered over 'model' (a shard
+    would cut a head)."""
+    if is_dtensor(t) and n % axis_size("model"):
+        t = gather_axis(t, "model")
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
 def _qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor, pos_thw=None):
     """q (B, S, H, hd), k and v (B, S, G, hd): the projections (with their
     biases where the config has them), then M-RoPE at ``pos_thw`` (B, S, 3)
@@ -54,9 +75,9 @@ def _qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor, pos_thw=None):
     a config without M-RoPE is ignored, as in the reference)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = layers.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = layers.dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = layers.dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _split_heads(layers.dense(p["wq"], x), cfg.n_heads, hd)
+    k = _split_heads(layers.dense(p["wk"], x), cfg.n_kv_heads, hd)
+    v = _split_heads(layers.dense(p["wv"], x), cfg.n_kv_heads, hd)
     if cfg.mrope and pos_thw is not None:
         q = layers.apply_mrope(q, pos_thw, cfg.rope_theta, cfg.mrope_sections)
         k = layers.apply_mrope(k, pos_thw, cfg.rope_theta, cfg.mrope_sections)
@@ -101,8 +122,7 @@ def _flash_fwd(q, k, v, S: int, causal: bool, window: int, qb_len: int, kb_len: 
     qs = (q * _bf16_scale(hd)).reshape(B, Sq, G, rep, hd).permute(0, 2, 3, 1, 4)
     kt = _f32(k.permute(0, 2, 1, 3))
     vt = v.permute(0, 2, 1, 3)
-    out = torch.empty((B, G, rep, Sq, hd_v), dtype=q.dtype, device=dev)
-    lse = torch.empty((B, G, rep, Sq), dtype=torch.float32, device=dev)
+    outs, lses = [], []
     for q0 in range(0, Sq, qb_len):
         q1 = q0 + qb_len
         qb = _f32(qs[:, :, :, q0:q1]).reshape(B, G, rep * qb_len, hd)
@@ -126,9 +146,9 @@ def _flash_fwd(q, k, v, S: int, causal: bool, window: int, qb_len: int, kb_len: 
                               _f32(vt[:, :, k0:k1]))
             acc = acc * corr[..., None] + pv.reshape(B, G, rep, qb_len, hd_v)
             m = m_new
-        out[:, :, :, q0:q1] = (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
-        lse[:, :, :, q0:q1] = m + torch.log(torch.clamp_min(l, 1e-30))
-    return out, lse
+        outs.append((acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype))
+        lses.append(m + torch.log(torch.clamp_min(l, 1e-30)))
+    return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
 
 
 def _flash_bwd(q, k, v, out, lse, dout, S, causal, window, qb_len, kb_len):
@@ -151,9 +171,9 @@ def _flash_bwd(q, k, v, out, lse, dout, S, causal, window, qb_len, kb_len):
     vt = _f32(v.permute(0, 2, 1, 3))
     do = _f32(dout)                                        # (B, G, rep, Sq, hd_v)
     delta = (do * _f32(out)).sum(dim=-1)                   # (B, G, rep, Sq)
-    dq = torch.zeros((B, G, rep, Sq, hd), dtype=f32, device=dev)
-    dk = torch.zeros((B, G, Sk, hd), dtype=f32, device=dev)
-    dv = torch.zeros((B, G, Sk, hd_v), dtype=f32, device=dev)
+    dq = [torch.zeros((B, G, rep, qb_len, hd), dtype=f32, device=dev)
+          for _ in range(0, Sq, qb_len)]
+    dk, dv = [], []
     n = rep * qb_len
     for k0 in range(0, Sk, kb_len):
         k1 = k0 + kb_len
@@ -174,12 +194,14 @@ def _flash_bwd(q, k, v, out, lse, dout, S, causal, window, qb_len, kb_len):
             dv_j = dv_j + torch.matmul(p.transpose(-1, -2), do_i)
             dp = torch.matmul(do_i, vb.transpose(-1, -2))
             ds = p * (dp - delta[:, :, :, q0:q1].reshape(B, G, n, 1))
-            dq[:, :, :, q0:q1] += (torch.matmul(ds, kb) * scale).reshape(B, G, rep, qb_len, hd)
+            dq[q0 // qb_len] = dq[q0 // qb_len] + (torch.matmul(ds, kb) * scale).reshape(
+                B, G, rep, qb_len, hd)
             qu_i = _f32(qu[:, :, :, q0:q1]).reshape(B, G, n, hd)
             dk_j = dk_j + torch.matmul(ds.transpose(-1, -2), qu_i) * scale
-        dk[:, :, k0:k1] = dk_j
-        dv[:, :, k0:k1] = dv_j
-    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+        dk.append(dk_j)
+        dv.append(dv_j)
+    dq = torch.cat(dq, dim=3).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    dk, dv = torch.cat(dk, dim=2), torch.cat(dv, dim=2)
     return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
 
 
@@ -252,7 +274,64 @@ def dense_attention(
     return out.reshape(B, S, H, v.shape[-1])
 
 
+def _on_locals(fn, *ts, out_like, shape=None):
+    """``fn`` of DTensors' local tensors, its result placed as
+    ``out_like`` (of global ``shape``, needed where a cut is uneven): for
+    work that is local once its inputs share a layout (whole sequences,
+    the batch and heads cut alike)."""
+    return from_local_like(fn(*(local_tensor(t) for t in ts)), out_like, out_like.placements,
+                           shape=shape)
+
+
+def _cut_heads(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor (B, S, H, d) whole over 'model' with its heads cut over
+    'model', unevenly where they do not divide it (a local slice, no
+    collective; a rank past the last head holds none), as GSPMD pads
+    them."""
+    from torch.distributed.tensor import Shard
+
+    pl = list(t.placements)
+    pl[list(t.device_mesh.mesh_dim_names).index("model")] = Shard(2)
+    return t.redistribute(t.device_mesh, pl)
+
+
 def _attend(q, k, v, cfg, *, causal: bool) -> torch.Tensor:
+    if not is_dtensor(q):
+        return _attend_plain(q, k, v, cfg, causal=causal)
+    # On a mesh: q, k and v cut alike, by batch and by heads over 'model';
+    # where the query heads or the kv groups do not divide it, k and v
+    # are gathered and expanded to one a query head and the heads are cut
+    # unevenly.  Then each rank runs its heads' attention on its local
+    # tensors.
+    m = axis_size("model")
+    B, S, H, _ = q.shape
+    G = k.shape[2]
+    heads = None if H % m else "heads"
+    q = lshard(q, "batch", None, heads, None)
+    if not (H % m or G % m):
+        k, v = (lshard(t, "batch", None, heads, None) for t in (k, v))
+        return _on_locals(lambda *a: _attend_plain(*a, cfg, causal=causal), q, k, v, out_like=q)
+
+    def expand(t):
+        d = t.shape[-1]
+        t = gather_axis(t, "model")[:, :, :, None].expand(B, S, G, H // G, d)
+        return _cut_heads(lshard(t.reshape(B, S, H, d), "batch", None, None, None))
+
+    def local(q, k, v):
+        if q.shape[2] == 0:
+            # a rank past the last head: an empty result that still reads
+            # q, k and v, so that their gradients' collectives run here too
+            return torch.cat([q, k, v], dim=-1)[..., :v.shape[-1]]
+        return _attend_plain(q, k, v, cfg, causal=causal)
+
+    q, k, v = _cut_heads(q) if H % m else q, expand(k), expand(v)
+    out = _on_locals(local, q, k, v, out_like=q, shape=(B, S, H, v.shape[-1]))
+    # the heads whole again before the output projection, which DTensor
+    # cannot flatten from an uneven cut
+    return gather_axis(out, "model") if H % m else out
+
+
+def _attend_plain(q, k, v, cfg, *, causal: bool) -> torch.Tensor:
     if cfg.attn_impl == "dense":
         return dense_attention(q, k, v, causal=causal, window=cfg.window)
     return flash_attention(q, k, v, causal=causal, window=cfg.window,
@@ -278,11 +357,16 @@ def _mla_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = layers.rmsnorm(p["kv_norm"], layers.dense(p["w_dkv"], x))
+    c_kv = lshard(c_kv, "batch", None, None)           # the latent whole on each rank
     k_rope = layers.dense(p["w_kr"], x).reshape(B, S, 1, dr)
     k_rope = layers.apply_rope(k_rope, positions, cfg.rope_theta)
     k_nope = layers.dense(p["w_uk"], c_kv).reshape(B, S, H, dn)
     val = layers.dense(p["w_uv"], c_kv).reshape(B, S, H, dv)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    # heads over 'model' through the attention (the up-projections are
+    # column-parallel)
+    k_nope = lshard(k_nope, "batch", None, "heads", None)
+    val = lshard(val, "batch", None, "heads", None)
+    q_full = lshard(torch.cat([q_nope, q_rope], dim=-1), "batch", None, "heads", None)
     k_full = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
     return q_full, k_full, val, c_kv, k_rope
 
@@ -323,9 +407,9 @@ def gqa_decode(
     B = x.shape[0]
     hd = cfg.head_dim
     L = cache_k.shape[1]
-    q = layers.dense(p["wq"], x).reshape(B, 1, cfg.n_heads, hd)
-    k = layers.dense(p["wk"], x).reshape(B, 1, cfg.n_kv_heads, hd)
-    v = layers.dense(p["wv"], x).reshape(B, 1, cfg.n_kv_heads, hd)
+    q = _split_heads(layers.dense(p["wq"], x), cfg.n_heads, hd)
+    k = _split_heads(layers.dense(p["wk"], x), cfg.n_kv_heads, hd)
+    v = _split_heads(layers.dense(p["wv"], x), cfg.n_kv_heads, hd)
     if cfg.use_rope:
         posb = pos.to(torch.int32).expand(B, 1)
         q = layers.apply_rope(q, posb, cfg.rope_theta)
@@ -334,20 +418,49 @@ def gqa_decode(
     G = cfg.n_kv_heads
     rep = cfg.n_heads // G
     slot = pos % L
+    # The score and context constraints match the cache's layout
+    # (``serve.decode_state_specs``): kv heads over 'model' where they
+    # divide it, else the cache length; then q is whole on every rank.
+    on_mesh = is_dtensor(q)
+    g_sharded = on_mesh and G % axis_size("model") == 0
+    if on_mesh and not g_sharded:
+        q = gather_axis(q, "model")
     qr = q.reshape(B, G, rep, hd) * hd ** -0.5
-    s = torch.einsum("bgrd,blgd->bgrl", _f32(qr), _f32(cache_k))
-    s_self = torch.einsum("bgrd,bogd->bgro", _f32(qr), _f32(k))
     idx = torch.arange(L, device=x.device)
     written = torch.where(pos >= L, idx != slot, idx < pos)
-    s = torch.where(written[None, None, None, :], s, NEG_INF)
-    lse_c = torch.logsumexp(s, dim=-1, keepdim=True)
-    lse = torch.logaddexp(lse_c, torch.logsumexp(s_self, dim=-1, keepdim=True))
-    w_cache = torch.exp(s - lse)
-    w_self = torch.exp(s_self - lse)
-    ctx = torch.einsum(
-        "bgrl,blgd->bgrd", _f32(w_cache.to(cache_v.dtype)), _f32(cache_v)
-    )
-    ctx = ctx + torch.einsum("bgro,bogd->bgrd", _f32(w_self.to(v.dtype)), _f32(v))
+
+    def attend(qr, cache_k, cache_v, k, v, written):
+        s = torch.einsum("bgrd,blgd->bgrl", _f32(qr), _f32(cache_k))
+        if g_sharded:
+            s = lshard(s, "batch", "kv_heads", None, None)
+        else:
+            s = lshard(s, "batch", None, None, "seq_sp")
+        s_self = torch.einsum("bgrd,bogd->bgro", _f32(qr), _f32(k))
+        s = torch.where(written[None, None, None, :], s, NEG_INF)
+        lse_c = torch.logsumexp(s, dim=-1, keepdim=True)
+        lse = torch.logaddexp(lse_c, torch.logsumexp(s_self, dim=-1, keepdim=True))
+        w_cache = torch.exp(s - lse)
+        w_self = torch.exp(s_self - lse)
+        ctx = torch.einsum(
+            "bgrl,blgd->bgrd", _f32(w_cache.to(cache_v.dtype)), _f32(cache_v)
+        )
+        ctx = lshard(ctx, "batch", "kv_heads" if g_sharded else None, None, None)
+        return ctx + torch.einsum("bgro,bogd->bgrd", _f32(w_self.to(v.dtype)), _f32(v))
+
+    if g_sharded:
+        # kv heads over 'model' and the cache whole a head: every product
+        # is local to a rank once the new token's q, k, v lie as the cache
+        # (its batch cut, which the serving layout takes over 'data' alone,
+        # and its kv-head cut)
+        from torch.distributed.tensor import Shard
+
+        kv_pl = list(cache_k.placements)                  # (B, L, G, hd)
+        q_pl = [Shard(1) if p.is_shard(2) else p for p in kv_pl]
+        qr = qr.redistribute(qr.device_mesh, q_pl)
+        k, v = (t.redistribute(t.device_mesh, kv_pl) for t in (k, v))
+        ctx = _on_locals(attend, qr, cache_k, cache_v, k, v, written, out_like=qr)
+    else:
+        ctx = attend(qr, cache_k, cache_v, k, v, written)
     out = layers.dense(p["wo"], ctx.reshape(B, 1, cfg.n_heads * hd).to(x.dtype))
     return out, k.to(cache_k.dtype), v.to(cache_v.dtype)
 
@@ -410,6 +523,7 @@ def mla_decode(
     idx = torch.arange(L, device=x.device)
     written = torch.where(pos >= L, idx != slot, idx < pos)
     s = torch.where(written[None, None, :], s * scale, NEG_INF)
+    s = lshard(s, "batch", None, "seq_sp")              # kept length-sharded
     s_self = s_self * scale
     lse = torch.logaddexp(
         torch.logsumexp(s, dim=-1, keepdim=True),
@@ -417,7 +531,7 @@ def mla_decode(
     )
     w_cache = torch.exp(s - lse)
     w_self = torch.exp(s_self - lse)
-    ctx_lat = _bf16_product("bhl,blr->bhr", w_cache, c_kv_cache)
+    ctx_lat = lshard(_bf16_product("bhl,blr->bhr", w_cache, c_kv_cache), "batch", None, None)
     ctx_lat = ctx_lat + _bf16_product("bho,bor->bhr", w_self, c_kv_new)
     w_uv = p["w_uv"]["w"].reshape(r, H, dv)
     ctx = _bf16_product("bhr,rhv->bhv", ctx_lat, w_uv).to(torch.bfloat16)

@@ -18,6 +18,9 @@ import math
 
 import torch
 
+from ..distributed.sharding import (from_local_like, gather_axis, is_dtensor, local_tensor, lshard,
+                                    product_input, product_output)
+
 __all__ = [
     "dense",
     "rmsnorm",
@@ -37,8 +40,18 @@ __all__ = [
 ]
 
 
+def _weight(w: torch.Tensor) -> torch.Tensor:
+    """A weight as a product reads it: on a mesh, its ZeRO-3 cut over
+    'data' gathered (the all-gather GSPMD puts before each use), its cut
+    over 'model' kept; a plain tensor passes through."""
+    return gather_axis(w, "data")
+
+
 def dense(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    if is_dtensor(x):
+        y = product_output(product_input(x).to(compute_dtype) @ _weight(p["w"]).to(compute_dtype))
+    else:
+        y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
@@ -115,6 +128,12 @@ def silu_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(x):
+        xc = product_input(x).to(torch.bfloat16)
+        g = xc @ _weight(p["w_gate"]).to(torch.bfloat16)
+        u = xc @ _weight(p["w_up"]).to(torch.bfloat16)
+        return product_output(product_input(silu_bf16(g) * u)
+                              @ _weight(p["w_down"]).to(torch.bfloat16))
     xc = x.to(torch.bfloat16)
     g = xc @ p["w_gate"].to(torch.bfloat16)
     u = xc @ p["w_up"].to(torch.bfloat16)
@@ -148,8 +167,10 @@ def gelu_tanh_bf16(x: torch.Tensor) -> torch.Tensor:
 def _f32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` of bf16 operands as the compiled reference's ``dot``: the
     operands cast to f32 (exact), multiplied in f32, rounded to bf16."""
+    if is_dtensor(a):
+        a, w = product_input(a), _weight(w)
     a = a.to(torch.bfloat16).to(torch.float32)
-    return (a @ w.to(torch.bfloat16).to(torch.float32)).to(torch.bfloat16)
+    return product_output(a @ w.to(torch.bfloat16).to(torch.float32)).to(torch.bfloat16)
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
@@ -165,22 +186,90 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
     backward on the card sums each row's gradients in a fixed order
     (indexing's backward, ``index_put_(accumulate=True)``, adds them in an
     order that changes from run to run)."""
+    if is_dtensor(p["table"]):
+        return _embed_mesh(p["table"], tokens)
     return torch.nn.functional.embedding(tokens.to(torch.int64), p["table"]).to(torch.bfloat16)
+
+
+def _embed_mesh(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The vocab-parallel lookup on DTensors: each rank looks its tokens up
+    in its rows of the table (the vocab cut, any ZeRO-3 cut of d_model
+    gathered), zero where another rank holds the row; the rows then sum
+    over the vocab's axis.  Each rank's table gradient is a partial sum
+    over the batch's axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    tokens = lshard(tokens, "batch", None)
+    mesh = table.device_mesh
+    t_pl, x_pl = list(table.placements), list(tokens.placements)
+    rows = [Shard(0) if tp.is_shard(0) and not xp.is_shard(0) else Replicate()
+            for tp, xp in zip(t_pl, x_pl)]
+    table = table.redistribute(mesh, rows)
+    out_pl = [Shard(0) if xp.is_shard(0) else Partial() if rp.is_shard(0) else Replicate()
+              for xp, rp in zip(x_pl, rows)]
+    grad_pl = [rp if rp.is_shard(0) else Partial() if xp.is_shard(0) else Replicate()
+               for xp, rp in zip(x_pl, rows)]
+    t_loc = local_tensor(table, grad_pl)
+    v0, n = 0, t_loc.shape[0]
+    for m, rp in enumerate(rows):
+        if rp.is_shard(0):
+            v0 = v0 * mesh.size(m) + mesh.get_local_rank(m)
+    v0 *= n
+    tok = tokens.to_local().to(torch.int64) - v0
+    held = (tok >= 0) & (tok < n)
+    out = torch.nn.functional.embedding(torch.where(held, tok, 0), t_loc)
+    out = torch.where(held[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return from_local_like(out, table, out_pl).to(torch.bfloat16)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
     """Logits in f32: bf16 operands, f32 products and accumulation."""
+    table = p["table"]
+    if is_dtensor(x):
+        x, table = product_input(x), _weight(table)
     x32 = x.to(torch.bfloat16).to(torch.float32)
-    t32 = p["table"].to(torch.bfloat16).to(torch.float32)
+    t32 = table.to(torch.bfloat16).to(torch.float32)
     return x32 @ t32.T
+
+
+def _token_sums(x, *rest, local):
+    """On DTensors: ``x`` (B, S, ...) and ``rest`` (B, S) cut by batch and
+    (sequence-parallel) by sequence, whole in every other dimension; then
+    ``local`` of each rank's local tensors → its (numerator, denominator)
+    token sums, which add up over the ranks that hold different tokens.
+    Returns the global ``numerator / max(denominator, 1)``."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    x = lshard(x, "batch", "seq_sp", *([None] * (x.dim() - 2)))
+    rest = [r if r is None else lshard(r, "batch", "seq_sp") for r in rest]
+    summed = [Partial() if p.is_shard() else Replicate() for p in x.placements]
+    num, den = local(*(r if r is None else local_tensor(r) for r in [x] + rest))
+    num, den = (from_local_like(t, x, summed) for t in (num, den))
+    return num / torch.clamp_min(den, 1.0)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's negative log-likelihood of its label, in f32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, labels.to(torch.int64)[..., None])[..., 0]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor = None) -> torch.Tensor:
     """Mean negative log-likelihood over valid positions: f32 logits
-    (..., V), int labels (...), an optional mask (...) of weights."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, labels.to(torch.int64)[..., None])[..., 0]
+    (..., V), int labels (...), an optional mask (...) of weights.  On
+    DTensors each rank takes its tokens' rows whole (vocab and all) and
+    the sums add up over the ranks (:func:`_token_sums`)."""
+    if is_dtensor(logits):
+        if mask is None:
+            mask = torch.ones_like(labels, dtype=torch.float32)
+
+        def local(lg, lab, m):
+            m = m.to(torch.float32)
+            return (_nll(lg, lab) * m).sum(), m.sum()
+
+        return _token_sums(logits, labels, mask, local=local)
+    nll = _nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.to(torch.float32)
@@ -259,5 +348,22 @@ def fused_cross_entropy(table: torch.Tensor, x: torch.Tensor, labels: torch.Tens
     """Unembed and mean cross-entropy in sequence chunks: ``table`` (V, D),
     ``x`` (B, S, D), ``labels`` and ``mask`` (B, S) -> the f32 loss
     ``sum(nll * mask) / max(sum(mask), 1)``.  ``n_chunks`` chunks where
-    they divide S, else one."""
+    they divide S, else one.
+
+    On DTensors the table is gathered whole and each rank runs the chunks
+    of its own tokens (:func:`_token_sums`); its table gradient is a
+    partial sum over the ranks."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Partial, Replicate
+
+        whole = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+
+        def local(xl, lab, m):
+            summed = [Partial() if p.is_shard() else Replicate()
+                      for p in lshard(x, "batch", "seq_sp", None).placements]
+            msum = m.to(torch.float32).sum()
+            mean = _FusedCE.apply(local_tensor(whole, summed), xl, lab, m, n_chunks)
+            return mean * torch.clamp_min(msum, 1.0), msum
+
+        return _token_sums(x, labels, mask, local=local)
     return _FusedCE.apply(table, x, labels, mask, n_chunks)

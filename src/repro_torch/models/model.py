@@ -8,9 +8,13 @@ A port of ``repro.models.model``'s ``forward`` / ``loss`` / ``_trunk`` /
 ...)``.  The forward runs each stack's ``*_block_train`` over the stacked
 params' leading axis (split once by ``unbind``) and sums the blocks' aux
 losses; ``cfg.remat`` maps to activation checkpointing around each layer
-where autograd records; the sharding constraints (``lshard``) have no
-numeric effect and are not applied, so the forward is bit-identical on a
-mesh or off it.  :func:`param_specs` gives the params' sharding specs
+where autograd records.  The reference's sharding constraints
+(``lshard``) stand where it has them: the residual after the embedding
+and, sequence-parallel (``cfg.sp``), after each layer; the logits over
+the vocab; the decode's embedded token.  On DTensors over a mesh
+(``launch/dryrun.py``) they lay the activations out; on plain tensors
+they return their input itself, so results off a mesh are bit-identical.
+:func:`param_specs` gives the params' sharding specs
 (``repro_torch.distributed.sharding``), as the reference's
 ``Model.param_specs``.  In decode the
 layer loop is a Python loop over the stacked params' leading axis (the
@@ -36,7 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import _util
-from ..distributed.sharding import param_pspecs
+from ..distributed.sharding import gather_axis, lshard, param_pspecs
 from . import attention, blocks, layers, ssm
 
 __all__ = [
@@ -403,11 +407,39 @@ def _unstack(stack) -> List[Any]:
     return [_util.tree_unflatten(treedef, [p[i] for p in parts]) for i in range(len(parts[0]))]
 
 
+def _sp_shard(cfg, x: torch.Tensor) -> torch.Tensor:
+    """The sequence-parallel residual constraint: each layer's output
+    sharded (batch, seq) over (data, model) where ``cfg.sp``, else the
+    carry's layout (:func:`_carry`)."""
+    if cfg.sp:
+        return lshard(x, "batch", "seq_sp", None)
+    return _carry(x)
+
+
+def _carry(x: torch.Tensor) -> torch.Tensor:
+    """The residual carried from one layer to the next, laid out by batch:
+    the one layout the reference's scanned carry keeps across layers (so
+    every layer meets the input the first one does)."""
+    return lshard(x, "batch", None, None)
+
+
+def _whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """A sequence-parallel carry gathered over 'model' where a layer (or
+    the head) first uses it, as GSPMD gathers it for the reference: the
+    products then see (batch, seq) cut over one mesh axis only."""
+    return gather_axis(x, "model")
+
+
 def _scan_stack(stack, x: torch.Tensor, apply_fn, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """``apply_fn(layer_params, x) -> (x, aux)`` over the stack's leading
-    axis in order, each layer under ``cfg.remat``; the aux losses summed
-    in f32."""
-    fn = _remat(cfg, apply_fn)
+    axis in order, each layer under ``cfg.remat`` with its output under
+    :func:`_sp_shard`; the aux losses summed in f32."""
+
+    def apply_sp(lp, h):
+        h, a = apply_fn(lp, _whole_seq(h))
+        return _sp_shard(cfg, h), a
+
+    fn = _remat(cfg, apply_sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(stack):
         x, a = fn(lp, x)
@@ -430,7 +462,7 @@ def forward(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, 
     _check_one_device(params, batch)
     x, aux = _trunk(cfg, params, batch)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return layers.unembed(head, x), aux
+    return lshard(layers.unembed(head, _whole_seq(x)), "batch", None, "vocab"), aux
 
 
 def _trunk(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -440,8 +472,8 @@ def _trunk(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     end projects the frames."""
     pos_thw = None
     if cfg.family == "vlm":
-        img = layers.dense(params["frontend_proj"], batch["patches"])
-        txt = layers.embed(params["embed"], batch["tokens"])
+        img = lshard(layers.dense(params["frontend_proj"], batch["patches"]), "batch", None, None)
+        txt = lshard(layers.embed(params["embed"], batch["tokens"]), "batch", None, None)
         x = torch.cat([img.to(torch.bfloat16), txt], dim=1)
         pos_thw = batch["pos_thw"]
     elif cfg.family == "audio":
@@ -452,6 +484,7 @@ def _trunk(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     if cfg.pos_embedding == "learned":
         x = x + params["pos"]["table"][:S][None].to(x.dtype)
+    x = lshard(x, "batch", None, None)
     if cfg.family in ("dense", "vlm", "audio"):
         x, aux = _scan_stack(params["layers"], x, lambda lp, h: blocks.dense_block_train(
             lp, h, cfg, positions, pos_thw), cfg)
@@ -481,10 +514,11 @@ def _hybrid_forward(cfg, params, x: torch.Tensor, positions: torch.Tensor):
     def mamba(lp, h):
         return blocks.mamba_block_train(lp, h, cfg)
 
-    attend = _remat(cfg, lambda h: blocks.dense_block_train(shared, h, cfg, positions))
+    attend = _remat(cfg, lambda h: blocks.dense_block_train(shared, _whole_seq(h), cfg, positions))
     for group in _unstack(params["mamba_groups"]):
         x, _ = _scan_stack(group, x, mamba, cfg)
         x, _ = attend(x)
+        x = _sp_shard(cfg, x)
     if "mamba_tail" in params:
         x, _ = _scan_stack(params["mamba_tail"], x, mamba, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -514,19 +548,21 @@ def loss(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dic
         labels = batch["labels"]
         mask = batch.get("mask")
         if mask is None:
-            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+            mask = torch.ones_like(labels, dtype=torch.float32)
         ce = layers.fused_cross_entropy(head["table"], x, labels, mask, cfg.ce_chunks)
     return ce + cfg.aux_loss_coef * aux, {"ce": ce, "aux": aux}
 
 
 def decode_front(cfg, params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Embed (+ learned positions): the step's work before the layers."""
+    """Embed (+ learned positions), laid out by batch: the step's work
+    before the layers (the reference's ``decode_step`` and its serve
+    step's ``_decode_front``, one function here)."""
     x = layers.embed(params["embed"], tokens)
     if cfg.pos_embedding == "learned":
         row = torch.clamp(pos, max=cfg.max_position - 1).to(torch.int64)
         pe = params["pos"]["table"].index_select(0, row.reshape(1))
         x = x + pe[None].to(x.dtype)
-    return x
+    return lshard(x, "batch", None, None)
 
 
 def decode_tail(cfg, params, x: torch.Tensor) -> torch.Tensor:
@@ -551,6 +587,7 @@ def decode_step(
     for j, (key, i, kind) in enumerate(plan):
         lp = _util.tree_map(lambda a, i=i: a[i], params[key])
         x, (u0, u1) = block_fn(kind)(lp, x, (c0[j], c1[j]), pos, cfg)
+        x = _carry(x)
         outs0.append(u0)
         outs1.append(u1)
     new_state = dict(state)
@@ -577,6 +614,7 @@ def _mamba_stack(cfg, stack, x, states, convs, pos):
     for i in range(states.shape[0]):
         lp = _util.tree_map(lambda a, i=i: a[i], stack)
         x, (st, cv) = blocks.mamba_block_decode(lp, x, (states[i], convs[i]), pos, cfg)
+        x = _carry(x)
         outs_s.append(st)
         outs_c.append(cv)
     return x, torch.stack(outs_s), torch.stack(outs_c)
@@ -595,6 +633,7 @@ def _hybrid_decode_step(cfg, params, state, tokens):
         group = _util.tree_map(lambda a, g=g: a[g], params["mamba_groups"])
         x, st, cv = _mamba_stack(cfg, group, x, state["ssm_state"][g], state["ssm_conv"][g], pos)
         x, (kn, vn) = blocks.dense_block_decode(shared, x, (kv_k[g], kv_v[g]), pos, cfg)
+        x = _carry(x)
         ns.append(st)
         nc.append(cv)
         nk.append(kn)

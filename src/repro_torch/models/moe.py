@@ -21,6 +21,14 @@ f32 product of bf16 operands rounded once to bf16
 (``layers.silu_bf16``); the combine multiplies each kept row by its
 bf16-rounded gate in f32, sums the K rows in f32 in order and rounds
 once.
+
+On DTensors over a mesh (``launch/dryrun.py``) the dispatch is the
+reference's shard-local one: the (dispatch_shards, T_loc, D) tokens lie
+over the batch axes, and each rank routes, dispatches and combines its
+own rows on its local tensors (:func:`_moe_apply_mesh`); the reference's
+``lshard`` sites lay the expert buffer out over the experts' axis and
+back, which puts the token all-to-all (or its slice and all-gather) at
+the dispatch and combine boundaries.  Plain tensors take the loop below.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Tuple
 
 import torch
 
+from ..distributed.sharding import from_local_like, is_dtensor, local_tensor, lshard
 from . import layers
 
 __all__ = ["capacity", "router_probs", "top_k", "route", "dispatch", "combine", "moe_apply"]
@@ -126,10 +135,13 @@ class _Dispatch(torch.autograd.Function):
         sort, slot_src, valid = ctx.saved_tensors
         T, K = ctx.shape
         E, C, D = dbuf.shape
-        # each sorted pair's row: the slot that holds it, or 0 (dropped)
-        rows = torch.zeros((T * K, D), dtype=dbuf.dtype, device=dbuf.device)
-        live = valid.reshape(-1)
-        rows[slot_src.reshape(-1)[live]] = dbuf.reshape(E * C, D)[live]
+        # each sorted pair's row: the slot that holds it, or 0 (dropped).
+        # A live slot's pair is its own; the empty slots all write one
+        # spare row, dropped after (no shape here depends on the data)
+        rows = torch.zeros((T * K + 1, D), dtype=dbuf.dtype, device=dbuf.device)
+        dst = torch.where(valid.reshape(-1), slot_src.reshape(-1), T * K)
+        rows[dst] = dbuf.reshape(E * C, D)
+        rows = rows[:T * K]
         # each token's K pairs in sorted order, added in that order
         rank = torch.empty_like(sort)
         rank[sort] = torch.arange(T * K, device=sort.device)
@@ -210,6 +222,110 @@ def _experts(we, buf: torch.Tensor) -> torch.Tensor:
     return layers._f32_product(layers.silu_bf16(h) * u, we["w_down"])
 
 
+def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
+    me = probs.mean(dim=(0, 1))
+    ce = torch.nn.functional.one_hot(idx[..., 0], E).to(torch.float32).mean(dim=(0, 1))
+    return E * torch.sum(me * ce)
+
+
+_FF_DIM = {"w_gate": 2, "w_up": 2, "w_down": 1}      # (E, D, F) / (E, F, D)
+
+
+def _expert_weight_placements(buf_pl, w, ff_dim: int):
+    """An expert leaf's placements for the local product with a buffer
+    laid out as ``buf_pl``: its experts where the buffer has its experts,
+    its own ff cut where the buffer is whole, replicated elsewhere (so a
+    ZeRO-3 cut of d_model is gathered)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for bp, wp in zip(buf_pl, w.placements):
+        if bp.is_shard(1):
+            out.append(Shard(0))
+        elif bp.is_replicate() and wp.is_shard(ff_dim):
+            out.append(wp)
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _summed_over(pl, cut):
+    """``pl`` with a partial sum on each mesh axis where ``cut`` holds: the
+    placements of a local gradient that each rank sums over its own part
+    of the work (its tokens, its ff columns)."""
+    from torch.distributed.tensor import Partial
+
+    return [Partial() if c else p for p, c in zip(pl, cut)]
+
+
+SERVING_TOKENS = 4096      # the reference's: fewer tokens a shard take the serving layout
+
+
+def _moe_apply_mesh(p, xt: torch.Tensor, cfg):
+    """The routed experts on DTensors: ``xt`` (DS, T_loc, D) over the batch
+    axes.  Returns ((DS, T_loc, D), aux)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    DS, T_loc, D = xt.shape
+    E = cfg.n_experts
+    C = capacity(cfg, T_loc)
+    xt = lshard(xt, "batch", None, None)
+    mesh = xt.device_mesh
+    rows_pl = list(xt.placements)                       # Shard(0) on the batch axes
+    tokens_cut = [pl.is_shard() for pl in rows_pl]
+    router = p["router"]["w"].redistribute(mesh, [Replicate()] * len(rows_pl))
+
+    def route_local(x_loc, w_loc):
+        probs, gate, idx = route({"router": {"w": w_loc}}, x_loc, cfg)
+        bufs, sorts, poss = [], [], []
+        for s in range(x_loc.shape[0]):
+            buf, sort, pos = dispatch(x_loc[s], idx[s], C, E)
+            bufs.append(buf)
+            sorts.append(sort)
+            poss.append(pos)
+        return probs, gate, idx, torch.stack(bufs), torch.stack(sorts), torch.stack(poss)
+
+    # each rank routes its own tokens: the router's gradient sums over them
+    outs = route_local(local_tensor(xt, rows_pl),
+                       local_tensor(router, _summed_over(router.placements, tokens_cut)))
+    probs, gate, idx, buf, sort, pos = (from_local_like(t, xt, rows_pl) for t in outs)
+    aux = _aux_loss(probs, idx, E)
+
+    # the scatter stays token-sharded; then the experts' layout, adapted to
+    # the token count as the reference's: experts over 'model' in training,
+    # over 'data' (the serving weights' layout) for a few decode tokens
+    buf = lshard(buf, "batch", None, None, None)
+    serving = T_loc < SERVING_TOKENS
+    e_axis = "experts_serve" if serving else "experts"
+    buf_e = lshard(buf, None if serving else "batch", e_axis, None, None)
+    we = p["experts"]
+    w = {k: we[k].redistribute(mesh, _expert_weight_placements(buf_e.placements, we[k], d))
+         for k, d in _FF_DIM.items()}
+    out_pl = []
+    for bp, dp in zip(buf_e.placements, w["w_down"].placements):
+        out_pl.append(bp if bp.is_shard() else Partial() if dp.is_shard(1) else Replicate())
+    # the gradients: a weight whole over an axis that cuts the buffer's
+    # tokens sums its rows' gradients over it; the buffer's sums over an
+    # axis that cuts the ff width
+    buf_cut = [bp.is_shard(0) for bp in buf_e.placements]
+    ff_cut = [bp.is_replicate() and wp.is_shard(2)
+              for bp, wp in zip(buf_e.placements, w["w_gate"].placements)]
+    out_e = from_local_like(
+        _experts({k: local_tensor(v, _summed_over(v.placements, buf_cut)) for k, v in w.items()},
+                 local_tensor(buf_e, _summed_over(buf_e.placements, ff_cut))),
+        buf_e, out_pl)
+    if serving:
+        out_e = lshard(out_e, None, e_axis, None, None)
+    else:
+        out_e = lshard(out_e, "batch", None, None, None)
+
+    out_e = lshard(out_e, "batch", None, None, None)    # rows back to their tokens
+    loc = [local_tensor(t, rows_pl) for t in (out_e, sort, pos, idx, gate)]
+    y = torch.stack([combine(loc[0][s], loc[1][s], loc[2][s], loc[3][s], loc[4][s])
+                     for s in range(loc[0].shape[0])])
+    return lshard(from_local_like(y, xt, rows_pl), "batch", None, None), aux
+
+
 def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (y (B, S, D), aux): routed experts plus the shared
     ones, and the load-balance loss ``E * sum(mean probs * mean
@@ -221,16 +337,17 @@ def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     if T % DS:
         raise ValueError(f"{T} tokens do not split into {DS} dispatch shards")
     xt = x.reshape(DS, T // DS, D)
-    probs, gate, idx = route(p, xt, cfg)                           # (DS, T_loc, E|K)
-    me = probs.mean(dim=(0, 1))
-    ce = torch.nn.functional.one_hot(idx[..., 0], E).to(torch.float32).mean(dim=(0, 1))
-    aux = E * torch.sum(me * ce)
-    C = capacity(cfg, T // DS)
-    ys = []
-    for s in range(DS):
-        buf, sort, pos = dispatch(xt[s], idx[s], C, E)
-        ys.append(combine(_experts(p["experts"], buf), sort, pos, idx[s], gate[s]))
-    y = torch.stack(ys)
+    if is_dtensor(xt):
+        y, aux = _moe_apply_mesh(p, xt, cfg)
+    else:
+        probs, gate, idx = route(p, xt, cfg)                       # (DS, T_loc, E|K)
+        aux = _aux_loss(probs, idx, E)
+        C = capacity(cfg, T // DS)
+        ys = []
+        for s in range(DS):
+            buf, sort, pos = dispatch(xt[s], idx[s], C, E)
+            ys.append(combine(_experts(p["experts"], buf), sort, pos, idx[s], gate[s]))
+        y = torch.stack(ys)
     if "shared" in p:
         y = y + layers.swiglu(p["shared"], xt)
     return y.reshape(B, S, D).to(x.dtype), aux

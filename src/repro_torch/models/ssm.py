@@ -34,6 +34,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..distributed.sharding import grad_laid_out
 from . import layers
 
 __all__ = ["SSMCache", "init_ssm_cache", "mamba2_decode", "mamba2_train", "ssd_scan",
@@ -145,7 +146,8 @@ def mamba2_train(p, x: torch.Tensor, cfg) -> torch.Tensor:
     A = -torch.exp(p["ssm"]["A_log"])
     dtv = softplus_f32(dt.to(torch.float32) + p["ssm"]["dt_bias"][None, None, :])
     xh = xin.reshape(*xin.shape[:2], H, cfg.ssm_head_dim)
-    y = ssd_scan(xh, dtv, A, Bc, Cc, p["ssm"]["D"], cfg.ssd_chunk)
+    # on a mesh the scan's backward runs in its forward's layout
+    y = grad_laid_out(ssd_scan(xh, dtv, A, Bc, Cc, p["ssm"]["D"], cfg.ssd_chunk))
     y = y.reshape(*x.shape[:2], d_inner)
     gate = layers.silu_bf16(z.to(torch.float32)).to(torch.bfloat16)
     h = layers.rmsnorm(p["norm"], y.to(torch.float32) * gate.to(torch.float32))

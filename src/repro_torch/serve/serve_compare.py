@@ -1,5 +1,5 @@
-"""Time the plain decode step and the compressed ring of this checkout
-against another checkout's on one CUDA card, in turns.
+"""Time the plain decode step, the compressed ring and the prefill of this
+checkout against another checkout's on one CUDA card, in turns.
 
     python3 src/repro_torch/serve/serve_compare.py --other OTHER_CHECKOUT [--rounds 2]
 
@@ -11,9 +11,11 @@ process imports ``repro_torch`` from its tree's ``src`` and drives it as
 size with random weights (``standard_normal * 0.02``, seed 0), its
 serving store built on the card with payload feeds, then B=4 requests of
 16 prompt + 16 greedy tokens through the plain step and through ring 2,
-three times each in turns after one warm run of each.  It checks that
-the ring's logits equal the plain step's bit for bit, and reports tokens/s
-(host clock, the card synchronised) for each run.  Prints one JSON line
+three times each in turns after one warm run of each; then
+``make_prefill`` of B=4 x 2,048 random tokens (``chip_smoke.py``'s timed
+prefill), five times after one warm run.  It checks that the ring's
+logits equal the plain step's bit for bit, and reports tokens/s (host
+clock, the card synchronised) for each run.  Prints one JSON line
 per process and a summary of the medians per (path, tree).
 """
 
@@ -29,7 +31,8 @@ import time
 
 # <checkout>/src/repro_torch/serve/serve_compare.py
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), *[os.pardir] * 3))
-REPS = 3                               # timed runs of each path a process
+REPS = 3                               # timed runs of each decode path a process
+PREFILL_REPS = 5                       # timed prefills a process
 
 
 def worker(src: str) -> dict:
@@ -45,7 +48,7 @@ def worker(src: str) -> dict:
     from repro_torch.core.options import CodecOptions
     from repro_torch.models.model import param_shapes
     from repro_torch.serve import (
-        CompressedParamStore, greedy_generate, make_compressed_serve_step,
+        CompressedParamStore, greedy_generate, make_compressed_serve_step, make_prefill,
     )
 
     if not os.path.samefile(os.path.dirname(repro_torch.__file__),
@@ -88,6 +91,23 @@ def worker(src: str) -> dict:
     for _ in range(REPS):
         for path in ("plain", "ring"):
             out[f"{path} tokens/s"].append(run(path)[0])
+
+    pb, ps = chip_smoke.PREFILL_SHAPES["repro_gpt_100m"][2:]
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (pb, ps)).astype(np.int32)).to(dev)}
+    prefill = make_prefill(cfg)
+    out["prefill tokens/s"] = []
+    for i in range(PREFILL_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not torch.isfinite(logits).all():
+            raise AssertionError("the prefill's logits are not finite")
+        del logits
+        if i:                          # the first run warms up
+            out["prefill tokens/s"].append(pb * ps / seconds)
     return out
 
 

@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from .. import _util
-from ..distributed.sharding import P, batch_pspec
+from ..distributed.sharding import P, batch_pspec, laid_out_like
 from ..models import model
 from ..optim.adamw import AdamWConfig, apply_updates, init_opt_state
 
@@ -62,13 +62,14 @@ def batch_pspecs(batch_tree: Any, mesh=None) -> Any:
 
 def loss_and_grads(cfg, params, batch):
     """``(loss, metrics, grads)``: the loss and its gradient for every
-    param leaf (in the leaf's dtype; zeros for a leaf the loss does not
-    read, such as the audio family's token table), with no graph kept."""
+    param leaf (in the leaf's dtype and, on a mesh, its layout; zeros for a
+    leaf the loss does not read, such as the audio family's token table),
+    with no graph kept."""
     leaves, treedef = _util.tree_flatten(params)
     xs = [p.detach().requires_grad_(True) for p in leaves]
     total, metrics = model.loss(cfg, _util.tree_unflatten(treedef, xs), batch)
     grads = torch.autograd.grad(total, xs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)]
+    grads = [torch.zeros_like(x) if g is None else laid_out_like(g, x) for x, g in zip(xs, grads)]
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             _util.tree_unflatten(treedef, grads))
 
