@@ -60,7 +60,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import _util
+from .. import _util, trace
 from ..kernels import bitpack_encode_chunks, huffdecode_chunks, huffdecode_index
 from ..kernels.bitpack import MAXL
 from ..kernels.huffdecode import fuse_lut, pack_words, sync_offsets
@@ -258,10 +258,11 @@ def encode_planes(
     """
     dev = _util.resolve_device(device)
     codecs = [codec.PlaneCodec(params) for _ in planes]
-    methods_all: List[List[int]] = [
-        pc.plan(plane, pool=pool, probe=probe)
-        for pc, plane, probe in zip(codecs, planes, probes)
-    ]
+    with trace.span("encode.plan"):
+        methods_all: List[List[int]] = [
+            pc.plan(plane, pool=pool, probe=probe)
+            for pc, plane, probe in zip(codecs, planes, probes)
+        ]
 
     cb = params.chunk_bytes
     jobs: List[Tuple[int, int, int]] = [
@@ -275,35 +276,37 @@ def encode_planes(
         len_tables = np.stack([np.asarray(pc.table, dtype=np.int32) for pc in codecs])
         code_tables = np.stack([np.asarray(pc.codes, dtype=np.int32) for pc in codecs])
         per_launch = max(1, MAX_BATCH_BYTES // (2 * cb))
-        for lo in range(0, len(jobs), per_launch):
-            batch = jobs[lo : lo + per_launch]
-            blobs = _pack_jobs(planes, batch, len_tables, code_tables, cb, dev)
-            for (p, ch, _), blob in zip(batch, blobs):
-                huff_payloads[(p, ch)] = blob
+        with trace.span("encode.k7"):
+            for lo in range(0, len(jobs), per_launch):
+                batch = jobs[lo : lo + per_launch]
+                blobs = _pack_jobs(planes, batch, len_tables, code_tables, cb, dev)
+                for (p, ch, _), blob in zip(batch, blobs):
+                    huff_payloads[(p, ch)] = blob
 
     entries_all: List[List[codec.ChunkEntry]] = []
     payloads_all: List[List[bytes]] = []
     tables_all: List[Optional[bytes]] = []
-    for p, (pc, plane, methods) in enumerate(zip(codecs, planes, methods_all)):
-        other = [ch for ch in range(len(methods)) if methods[ch] != codec.Method.HUFF]
-        other_blobs = codec._fan_out(
-            pool,
-            len(other),
-            lambda ids, plane=plane, methods=methods, other=other, pc=pc: (
-                pc.encode_ids(plane, methods, [other[i] for i in ids])
-            ),
-        )
-        payloads: List[bytes] = [b""] * len(methods)
-        for ch, blob in zip(other, other_blobs):
-            payloads[ch] = blob
-        for ch, m in enumerate(methods):
-            if m == codec.Method.HUFF:
-                payloads[ch] = huff_payloads[(p, ch)]
-        entries = pc.finalize(plane, methods, payloads)
-        entries_all.append(entries)
-        payloads_all.append(payloads)
-        needs_table = any(e.method == codec.Method.HUFF for e in entries)
-        tables_all.append(pc.table_blob() if needs_table else None)
+    with trace.span("encode.finalize"):
+        for p, (pc, plane, methods) in enumerate(zip(codecs, planes, methods_all)):
+            other = [ch for ch in range(len(methods)) if methods[ch] != codec.Method.HUFF]
+            other_blobs = codec._fan_out(
+                pool,
+                len(other),
+                lambda ids, plane=plane, methods=methods, other=other, pc=pc: (
+                    pc.encode_ids(plane, methods, [other[i] for i in ids])
+                ),
+            )
+            payloads: List[bytes] = [b""] * len(methods)
+            for ch, blob in zip(other, other_blobs):
+                payloads[ch] = blob
+            for ch, m in enumerate(methods):
+                if m == codec.Method.HUFF:
+                    payloads[ch] = huff_payloads[(p, ch)]
+            entries = pc.finalize(plane, methods, payloads)
+            entries_all.append(entries)
+            payloads_all.append(payloads)
+            needs_table = any(e.method == codec.Method.HUFF for e in entries)
+            tables_all.append(pc.table_blob() if needs_table else None)
     return entries_all, payloads_all, tables_all
 
 
@@ -521,28 +524,31 @@ class _ResidentStream:
                 off += e.raw_len
 
         flat = [(p, c) for p in range(len(entries_all)) for c in range(len(entries_all[p]))]
-        _verify_payload_crcs(flat, entries_all, payloads_all, pool)
-        self.jobs = _huff_jobs(flat, entries_all, payloads_all, tables_all)
+        with trace.span("feed.verify"):
+            _verify_payload_crcs(flat, entries_all, payloads_all, pool)
+            self.jobs = _huff_jobs(flat, entries_all, payloads_all, tables_all)
 
         self.words = None
         self.sync = self.sync_off = None
         self.sizes = np.zeros(0, np.int64)
         if self.jobs:
             huff_planes = sorted({p for (p, _) in self.jobs})
-            luts, _ = _stacked_luts([tables_all[p] for p in huff_planes])
-            words, word_off, pids, self.counts_h, self.sizes = _pack_words(
-                self.jobs, entries_all, payloads_all, chunk_bytes,
-                {p: r for r, p in enumerate(huff_planes)},
-            )
+            with trace.span("feed.pack"):
+                luts, _ = _stacked_luts([tables_all[p] for p in huff_planes])
+                words, word_off, pids, self.counts_h, self.sizes = _pack_words(
+                    self.jobs, entries_all, payloads_all, chunk_bytes,
+                    {p: r for r, p in enumerate(huff_planes)},
+                )
             _count_payload_upload(words.nbytes)
-            self.words = _upload(words, device)
-            self.word_off = _upload(word_off, device)
-            self.pids = _upload(pids, device)
-            self.counts = _upload(self.counts_h, device)
-            self.out_off = _upload(
-                np.asarray([chunk_off[j] for j in self.jobs], dtype=np.int64), device
-            )
-            self.luts = _upload(luts, device)
+            with trace.span("feed.upload"):
+                self.words = _upload(words, device)
+                self.word_off = _upload(word_off, device)
+                self.pids = _upload(pids, device)
+                self.counts = _upload(self.counts_h, device)
+                self.out_off = _upload(
+                    np.asarray([chunk_off[j] for j in self.jobs], dtype=np.int64), device
+                )
+                self.luts = _upload(luts, device)
 
         others = [j for j in flat if entries_all[j[0]][j[1]].method != codec.Method.HUFF]
         other_chunks = _decode_other_chunks(others, entries_all, payloads_all, pool)
@@ -565,7 +571,8 @@ class _ResidentStream:
                 src += piece.size
             cat = np.concatenate(parts) if len(parts) > 1 else parts[0]
             _count_payload_upload(cat.nbytes)
-            self.splice = _upload(cat, device)
+            with trace.span("feed.upload"):
+                self.splice = _upload(cat, device)
 
     @property
     def device_bytes(self) -> int:
@@ -689,7 +696,8 @@ class PayloadFeed:
         )
         # The index pass, whose cursors are integrity-checked once for the
         # feed's life.
-        self._rs.check(self._rs.index(), payloads_all)
+        with trace.span("feed.index"):
+            self._rs.check(self._rs.index(), payloads_all)
 
     @property
     def device(self) -> torch.device:

@@ -63,7 +63,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .. import _util
+from .. import _util, trace
 from ..kernels.fused_unplane import ELEM_DTYPES
 from . import (
     bitlayout, codec, container, device_entropy, device_plane, device_unplane, engine,
@@ -421,9 +421,10 @@ def _device_encode(
     """Blobs of same-layout leaves (XORed with ``bases`` for a delta) whose
     plane stage is the device's: one K3 batch, then each leaf's entropy
     stage on its resolved backend."""
-    produced = device_plane.produce_planes_batched(
-        leaves, layout, params, bases=bases, device=device
-    )
+    with trace.span("encode.planes"):
+        produced = device_plane.produce_planes_batched(
+            leaves, layout, params, bases=bases, device=device
+        )
     pool = _pool(config, opts)
     return [
         _entropy_stage(
@@ -569,9 +570,10 @@ class ArrayFeed:
 
     def decode(self) -> torch.Tensor:
         """The restored leaf on the feed's device."""
-        planes = self._feed.decode()
-        elems = device_unplane.consume_planes(planes, self._layout, device_resident=True)
-        return elems.view(_util.torch_dtype(self.dtype)).reshape(self.shape)
+        with trace.span("feed.decode"):
+            planes = self._feed.decode()
+            elems = device_unplane.consume_planes(planes, self._layout, device_resident=True)
+            return elems.view(_util.torch_dtype(self.dtype)).reshape(self.shape)
 
 
 def build_array_feed(

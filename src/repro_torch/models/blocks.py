@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from . import attention, layers, moe, ssm
 
 __all__ = ["norm_apply", "mlp_apply", "dense_block_train", "moe_block_train",
@@ -75,9 +76,11 @@ def _attend(p, x, caches, pos, cfg):
 
 
 def dense_block_decode(p, x, caches, pos, cfg):
-    xs, new_caches = _attend(p, x, caches, pos, cfg)
-    h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
-    x = xs.to(x.dtype) + mlp_apply(cfg, p["mlp"], h)
+    with trace.span("model.attention"):
+        xs, new_caches = _attend(p, x, caches, pos, cfg)
+    with trace.span("model.mlp"):
+        h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
+        x = xs.to(x.dtype) + mlp_apply(cfg, p["mlp"], h)
     return x, new_caches
 
 
@@ -86,10 +89,12 @@ def moe_block_decode(p, x, caches, pos, cfg):
     dropped.  The output rounds as the HLO's ``add_convert_fusion``:
     ``bf16(bf16(x + a) + y)``, ``y`` the bf16 expert mix (plus the bf16
     shared output, added and rounded first)."""
-    xs, new_caches = _attend(p, x, caches, pos, cfg)
-    h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
-    y, _ = moe.moe_apply(p["moe"], h, cfg)
-    return xs.to(x.dtype) + y, new_caches
+    with trace.span("model.attention"):
+        xs, new_caches = _attend(p, x, caches, pos, cfg)
+    with trace.span("model.mlp"):
+        h = norm_apply(cfg, p["mlp_norm"], xs).to(x.dtype)
+        y, _ = moe.moe_apply(p["moe"], h, cfg)
+        return xs.to(x.dtype) + y, new_caches
 
 
 def mamba_block_decode(p, x, caches, pos, cfg):

@@ -39,7 +39,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .. import _util
+from .. import _util, trace
 from ..distributed.sharding import gather_axis, lshard, param_pspecs
 from . import attention, blocks, layers, ssm
 
@@ -557,19 +557,21 @@ def decode_front(cfg, params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.
     """Embed (+ learned positions), laid out by batch: the step's work
     before the layers (the reference's ``decode_step`` and its serve
     step's ``_decode_front``, one function here)."""
-    x = layers.embed(params["embed"], tokens)
-    if cfg.pos_embedding == "learned":
-        row = torch.clamp(pos, max=cfg.max_position - 1).to(torch.int64)
-        pe = params["pos"]["table"].index_select(0, row.reshape(1))
-        x = x + pe[None].to(x.dtype)
-    return lshard(x, "batch", None, None)
+    with trace.span("model.front"):
+        x = layers.embed(params["embed"], tokens)
+        if cfg.pos_embedding == "learned":
+            row = torch.clamp(pos, max=cfg.max_position - 1).to(torch.int64)
+            pe = params["pos"]["table"].index_select(0, row.reshape(1))
+            x = x + pe[None].to(x.dtype)
+        return lshard(x, "batch", None, None)
 
 
 def decode_tail(cfg, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + unembed: the step's work after the layers."""
-    x = blocks.norm_apply(cfg, params["final_norm"], x)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return layers.unembed(head, x)
+    with trace.span("model.tail"):
+        x = blocks.norm_apply(cfg, params["final_norm"], x)
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        return layers.unembed(head, x)
 
 
 def decode_step(
@@ -604,8 +606,9 @@ def write_caches(cfg, state: Dict[str, Any], n0: torch.Tensor,
     k0, k1 = cache_keys(cfg)
     if cfg.family == "ssm":
         return {k0: n0, k1: n1}
-    slot = state["pos"] % state[k0].shape[2]
-    return {k0: _slot_write(state[k0], n0, slot), k1: _slot_write(state[k1], n1, slot)}
+    with trace.span("model.write_caches"):
+        slot = state["pos"] % state[k0].shape[2]
+        return {k0: _slot_write(state[k0], n0, slot), k1: _slot_write(state[k1], n1, slot)}
 
 
 def _mamba_stack(cfg, stack, x, states, convs, pos):

@@ -31,7 +31,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
-from .. import _util
+from .. import _util, trace
 from ..core import codec, zipnn
 from ..core.options import CodecOptions, resolve_options
 
@@ -116,27 +116,28 @@ class CompressedParamStore:
             if not leaves:
                 continue
             n = leaves[0].shape[0]
-            store._stacks[key] = [
-                zipnn.compress_pytree(
-                    _util.tree_map(lambda a, i=i: a[i], sub),
-                    store._config,
-                    options=store._options,
-                    device=store.device,
-                )
-                for i in range(n)
-            ]
+            store._stacks[key] = [store._encode(sub, i) for i in range(n)]
             if payload_feed:
-                store._feeds[key] = [
-                    [
-                        zipnn.build_array_feed(
-                            ct, store._config, options=store._options,
-                            device=store.device,
-                        )
-                        for ct in manifest["leaves"]
-                    ]
-                    for manifest in store._stacks[key]
-                ]
+                store._feeds[key] = [store._feed(m) for m in store._stacks[key]]
         return store
+
+    def _encode(self, stack: PyTree, i: int) -> Dict[str, Any]:
+        """Layer ``i`` of ``stack`` as one ``compress_pytree`` manifest."""
+        with trace.span("store.encode"):
+            return zipnn.compress_pytree(
+                _util.tree_map(lambda a: a[i], stack), self._config,
+                options=self._options, device=self.device,
+            )
+
+    def _feed(self, manifest: Dict[str, Any]) -> List[Optional[zipnn.ArrayFeed]]:
+        """One layer's per-leaf feeds (None where a leaf rides the per-call
+        decode)."""
+        with trace.span("store.feed"):
+            return [
+                zipnn.build_array_feed(ct, self._config, options=self._options,
+                                       device=self.device)
+                for ct in manifest["leaves"]
+            ]
 
     # -- decode / residency ------------------------------------------------
 

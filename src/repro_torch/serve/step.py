@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from .. import _util
+from .. import _util, trace
 from ..distributed.sharding import P, map_with_path, mesh_axes_and_sizes
 from ..models.model import (
     block_fn, cache_keys, decode_front, decode_step, decode_tail, forward, layer_plan,
@@ -129,7 +129,8 @@ def make_serve_step(cfg) -> Callable:
     """serve_step(params, state, tokens) → (logits, state)."""
 
     def serve_step(params, state, tokens):
-        return decode_step(cfg, params, state, tokens)
+        with trace.span("serve.step"):
+            return decode_step(cfg, params, state, tokens)
 
     return serve_step
 
@@ -273,10 +274,12 @@ def make_compressed_serve_step(
 
     def _decode(n: int):
         if side is None:
-            return _run(n), None
-        while held and (len(held) >= ring or held[0][0].query()):
-            held.popleft()[0].synchronize()
-        with torch.cuda.stream(side):
+            with trace.span("ring.decode"):
+                return _run(n), None
+        with trace.span("ring.wait"):
+            while held and (len(held) >= ring or held[0][0].query()):
+                held.popleft()[0].synchronize()
+        with trace.span("ring.decode"), torch.cuda.stream(side):
             out = _run(n)
             ready = torch.cuda.Event()
             ready.record(side)
@@ -299,7 +302,7 @@ def make_compressed_serve_step(
             end.record(torch.cuda.current_stream(dev))
             held.append((end, lp))
 
-    def serve_step(state, tokens):
+    def _step(state, tokens):
         pos = state["pos"]
         x = decode_front(cfg, store.static, tokens, pos)
         inflight: deque = deque()
@@ -351,6 +354,10 @@ def make_compressed_serve_step(
             kv_store.append(n0, n1)
         new_state["pos"] = pos + 1
         return decode_tail(cfg, store.static, x), new_state
+
+    def serve_step(state, tokens):
+        with trace.span("serve.step"):
+            return _step(state, tokens)
 
     serve_step.store = store
     serve_step.ring = ring
